@@ -12,7 +12,8 @@ sys.path.insert(0, _ROOT)
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--outdir", default="/tmp/seaice_5day_files")
+    ap.add_argument("--outdir", default=os.path.join(_ROOT, "runs",
+                                                     "5day_files"))
     ap.add_argument("--subdiv", type=int, default=6)
     ap.add_argument("--f64", action="store_true")
     args = ap.parse_args()
@@ -59,7 +60,7 @@ def main():
         mesh.lon_cell, mesh.lat_cell)
     ocean = ncar_ocean_from_file(os.path.join(outdir, "ocean.nc"))
 
-    dump_dir = "/tmp/thermo_debug"
+    dump_dir = os.path.join(outdir, "thermo_debug")
     os.makedirs(dump_dir, exist_ok=True)
     runner = StandaloneRunner(
         model, state, atmos_forcing=atmos, ocean_forcing=ocean,

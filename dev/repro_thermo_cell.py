@@ -5,7 +5,7 @@ to capture its concrete (eager) inputs, and save them for analysis.
 
 Usage:
   JAX_PLATFORMS=cpu python dev/repro_thermo_cell.py \
-      --outdir /tmp/s4f64 --subdiv 4 --f64 --steps 87
+      --outdir runs/s4f64 --subdiv 4 --f64 --steps 87
 """
 import argparse
 import os
@@ -17,12 +17,13 @@ sys.path.insert(0, _ROOT)
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--outdir", default="/tmp/s4f64")
+    ap.add_argument("--outdir", default=os.path.join(_ROOT, "runs", "s4f64"))
     ap.add_argument("--subdiv", type=int, default=4)
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--steps", type=int, default=87,
                     help="abort substep index (run steps-1 then probe)")
-    ap.add_argument("--save", default="/tmp/thermo_cell_inputs.npz")
+    ap.add_argument("--save", default=os.path.join(
+        _ROOT, "runs", "thermo_cell_inputs.npz"))
     args = ap.parse_args()
 
     import jax

@@ -98,25 +98,19 @@ def main():
     ap.add_argument("--subcycles", type=int, default=120)
     ap.add_argument("--dt", type=float, default=1800.0)
     ap.add_argument("--f64", action="store_true")
-    ap.add_argument("--outdir", default="/tmp/seaice_5day_files")
+    ap.add_argument("--outdir", default=os.path.join(_ROOT, "runs",
+                                                     "5day_files"))
     ap.add_argument("--verify-restart", action="store_true",
                     help="rerun the second half from the mid-run "
                     "restart file and require bitwise equality")
-    ap.add_argument("--no-fused", action="store_true",
-                    help="force the XLA gather velocity path (disable "
-                    "the fused unstructured Pallas solver)")
-    ap.add_argument("--no-pallas-flux", action="store_true",
-                    help="force the XLA IR flux integration (disable "
-                    "the fused Pallas flux kernel)")
     ap.add_argument("--save-final", default=None,
                     help="write the final prognostic state to this "
                     ".npz (for precision/trajectory comparisons)")
     args = ap.parse_args()
 
     import jax
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        jax.config.update("jax_platforms", plat.split(",")[0])
+    from seaice_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.f64:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -165,11 +159,9 @@ def main():
         velocity=VelocitySolverConfig(
             elastic_subcycle_number=args.subcycles,
             rotate_cartesian_grid=True, include_metric_terms=True,
-            geostrophic_surface_tilt=False,
-            use_fused_unstructured=False if args.no_fused else None),
+            geostrophic_surface_tilt=False),
         advection=AdvectionConfig(
-            advection_type=AdvectionType.INCREMENTAL_REMAP,
-            use_pallas_flux=False if args.no_pallas_flux else None),
+            advection_type=AdvectionType.INCREMENTAL_REMAP),
         column=ColumnConfig())
     setup = RunSetup(initial_condition_type="cice_default",
                      initial_latitude_north=65.0,

@@ -9,7 +9,7 @@ synthetic seasonal CORE-style forcing through the forcing subsystem and
 the standalone run loop (output + restart streams + state checks).
 
 Usage:
-  python examples/run_5day_global.py --subdiv 5           # ~220 km, TPU
+  python examples/run_5day_global.py --subdiv 6           # ~120 km, GPU
   JAX_PLATFORMS=cpu python examples/run_5day_global.py --subdiv 3 --days 1
 """
 
@@ -18,7 +18,63 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
+
+
+def synthetic_core_forcing(mesh):
+    """Synthetic CORE-style forcing: seasonal + latitude-dependent
+    6-hourly atmosphere (16 records across the year, cyclic), monthly
+    cloud/precip, and a fixed ocean.  Returns (atmos, ocean) for
+    StandaloneRunner."""
+    import numpy as np
+
+    from seaice_tpu.forcing import ForcingSeries
+    from seaice_tpu.forcing.core import (CoreAtmosForcing,
+                                         NcarOceanForcing,
+                                         monthly_times)
+
+    nc = mesh.n_cells
+    polar = np.abs(mesh.lat_cell) > np.deg2rad(65.0)
+    lat = mesh.lat_cell
+    lon = mesh.lon_cell
+    n_samp = 16
+    times = np.linspace(0.0, 365 * 86400.0, n_samp, endpoint=False)
+    t_air = np.zeros((n_samp, nc))
+    q = np.zeros((n_samp, nc))
+    u_wind = np.zeros((n_samp, nc))
+    v_wind = np.zeros((n_samp, nc))
+    from seaice_tpu.mesh.rotation import latlon_vector_rotation_forward
+    for i, tsec in enumerate(times):
+        season = np.cos(2 * np.pi * (tsec / (365 * 86400.0) - 14 / 365))
+        t_air[i] = 288.0 - 45.0 * np.sin(np.abs(lat)) ** 2 \
+            - 12.0 * season * np.sin(lat)
+        q[i] = np.clip(5e-3 * np.exp((t_air[i] - 288.0) / 12.0),
+                       1e-4, 2e-2)
+        u_t = 6.0 * np.cos(lat) + 2.0 * np.sin(
+            2 * np.pi * tsec / (10 * 86400.0) + lon)
+        v_t = 1.5 * np.sin(2 * lon + 2 * np.pi * tsec / (5 * 86400.0))
+        u_wind[i], v_wind[i] = latlon_vector_rotation_forward(
+            u_t, v_t, mesh.x_cell, mesh.y_cell, mesh.z_cell)
+    six = ForcingSeries(times=times, fields={
+        "airTemperature": t_air, "airSpecificHumidity": q,
+        "uAirVelocity": u_wind, "vAirVelocity": v_wind})
+    mon = ForcingSeries(times=monthly_times(), fields={
+        "cloudFraction": np.tile(
+            (0.5 + 0.3 * np.sin(np.abs(lat)))[None, :], (12, 1)),
+        "precipitationRate": np.full((12, nc), 2e-6)})
+    atmos = CoreAtmosForcing(six_hourly=six, monthly=mon, lon=lon,
+                             lat=lat)
+    sst = np.where(polar, -1.7, 8.0 + 14.0 * np.cos(lat) ** 2)
+    ocean = NcarOceanForcing(ForcingSeries(
+        times=np.array([0.0]),
+        fields={"seaSurfaceTemperature": sst[None, :],
+                "seaSurfaceSalinity": np.full((1, nc), 34.0),
+                "seaFreezingTemperature": np.full((1, nc), -1.8),
+                "oceanMixedLayerDepth": np.full((1, nc), 20.0),
+                "uOceanVelocity": np.zeros((1, nc)),
+                "vOceanVelocity": np.zeros((1, nc))}))
+    return atmos, ocean
 
 
 def main():
@@ -28,13 +84,13 @@ def main():
     ap.add_argument("--subcycles", type=int, default=120)
     ap.add_argument("--dt", type=float, default=1800.0)
     ap.add_argument("--f64", action="store_true")
-    ap.add_argument("--outdir", default="/tmp/seaice_5day")
+    ap.add_argument("--outdir", default=os.path.join(_ROOT, "runs",
+                                                     "5day_global"))
     args = ap.parse_args()
 
     import jax
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        jax.config.update("jax_platforms", plat.split(",")[0])
+    from seaice_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.f64:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -46,10 +102,6 @@ def main():
     from seaice_tpu.column.thermo_shared import (
         ice_enthalpy_from_temperature, melting_temperature,
         salinity_profile, snow_enthalpy_from_temperature)
-    from seaice_tpu.forcing import ForcingSeries
-    from seaice_tpu.forcing.core import (CoreAtmosForcing,
-                                         NcarOceanForcing,
-                                         monthly_times)
     from seaice_tpu.io.output import OutputStream
     from seaice_tpu.mesh import icosahedral_mesh
     from seaice_tpu.model import SeaIceModel
@@ -99,47 +151,7 @@ def main():
         jnp.asarray(-12.0 * np.ones((nc, ncat, ns)), dtype)) * has
     state = replace(state, tracers=tr)
 
-    # synthetic CORE-style forcing: seasonal + latitude-dependent
-    # 6-hourly atmosphere (4 records/day x 8 sample days across the
-    # year, cyclic) and monthly cloud/precip
-    lat = mesh.lat_cell
-    lon = mesh.lon_cell
-    n_samp = 16
-    times = np.linspace(0.0, 365 * 86400.0, n_samp, endpoint=False)
-    t_air = np.zeros((n_samp, nc))
-    q = np.zeros((n_samp, nc))
-    u_wind = np.zeros((n_samp, nc))
-    v_wind = np.zeros((n_samp, nc))
-    from seaice_tpu.mesh.rotation import latlon_vector_rotation_forward
-    for i, tsec in enumerate(times):
-        season = np.cos(2 * np.pi * (tsec / (365 * 86400.0) - 14 / 365))
-        t_air[i] = 288.0 - 45.0 * np.sin(np.abs(lat)) ** 2 \
-            - 12.0 * season * np.sin(lat)
-        q[i] = np.clip(5e-3 * np.exp((t_air[i] - 288.0) / 12.0),
-                       1e-4, 2e-2)
-        u_t = 6.0 * np.cos(lat) + 2.0 * np.sin(
-            2 * np.pi * tsec / (10 * 86400.0) + lon)
-        v_t = 1.5 * np.sin(2 * lon + 2 * np.pi * tsec / (5 * 86400.0))
-        u_wind[i], v_wind[i] = latlon_vector_rotation_forward(
-            u_t, v_t, mesh.x_cell, mesh.y_cell, mesh.z_cell)
-    six = ForcingSeries(times=times, fields={
-        "airTemperature": t_air, "airSpecificHumidity": q,
-        "uAirVelocity": u_wind, "vAirVelocity": v_wind})
-    mon = ForcingSeries(times=monthly_times(), fields={
-        "cloudFraction": np.tile(
-            (0.5 + 0.3 * np.sin(np.abs(lat)))[None, :], (12, 1)),
-        "precipitationRate": np.full((12, nc), 2e-6)})
-    atmos = CoreAtmosForcing(six_hourly=six, monthly=mon, lon=lon,
-                             lat=lat)
-    sst = np.where(polar, -1.7, 8.0 + 14.0 * np.cos(lat) ** 2)
-    ocean = NcarOceanForcing(ForcingSeries(
-        times=np.array([0.0]),
-        fields={"seaSurfaceTemperature": sst[None, :],
-                "seaSurfaceSalinity": np.full((1, nc), 34.0),
-                "seaFreezingTemperature": np.full((1, nc), -1.8),
-                "oceanMixedLayerDepth": np.full((1, nc), 20.0),
-                "uOceanVelocity": np.zeros((1, nc)),
-                "vOceanVelocity": np.zeros((1, nc))}))
+    atmos, ocean = synthetic_core_forcing(mesh)
 
     os.makedirs(args.outdir, exist_ok=True)
     out = OutputStream(os.path.join(args.outdir, "output.nc"),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Run the standalone model entirely from a namelist file.
 
-The TPU-native analog of `mpirun ./seaice_model` with `namelist.seaice`:
+The JAX analog of `mpirun ./seaice_model` with `namelist.seaice`:
 every physics/scheme/tuning choice comes from the namelist (parsed and
 validated against the Registry audit, seaice_tpu/namelist.py); the mesh
 comes from an MPAS NetCDF file (--mesh) or a generated icosahedral mesh
@@ -26,14 +26,15 @@ def main():
     ap.add_argument("--mesh", help="MPAS NetCDF mesh file")
     ap.add_argument("--subdiv", type=int, default=3,
                     help="icosahedral subdivisions if no --mesh")
-    ap.add_argument("--outdir", default="/tmp/seaice_namelist_run")
+    ap.add_argument("--outdir", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "runs", "namelist_run"))
     ap.add_argument("--f64", action="store_true")
     args = ap.parse_args()
 
     import jax
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        jax.config.update("jax_platforms", plat.split(",")[0])
+    from seaice_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.f64:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp

@@ -3,7 +3,7 @@
 on a quasi-uniform icosahedral mesh with idealized forcing.
 
 Usage:
-  python examples/run_global.py --subdiv 4 --days 1      # TPU default
+  python examples/run_global.py --subdiv 4 --days 1      # GPU default
   JAX_PLATFORMS=cpu python examples/run_global.py --subdiv 3 --days 0.25
 """
 
@@ -24,9 +24,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        jax.config.update("jax_platforms", plat.split(",")[0])
+    from seaice_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.f64:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp

@@ -1,6 +1,6 @@
-"""seaice_tpu: a TPU-native sea-ice dynamical core.
+"""seaice_tpu: a JAX sea-ice dynamical core.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of
+A from-scratch JAX/XLA implementation of the capabilities of
 MPAS-Seaice (reference: EarthWorksOrg/mpas-seaice): EVP rheology momentum
 solver on the Voronoi cell/vertex dual mesh, incremental-remapping tracer
 transport, and column (Icepack-style) thermodynamics, with SPMD mesh

@@ -1,6 +1,6 @@
 """Column physics: the grid-independent per-cell physics package.
 
-TPU-native re-design of the CICE column package
+JAX re-design of the CICE column package
 (`/root/reference/src/column/`, API facade `ice_colpkg.F90:19-68`):
 every routine is written as a dense, vectorized kernel over leading
 batch dims [nCells, nCategories] with the vertical layer axis last —

@@ -1,6 +1,6 @@
 """Bitz & Lipscomb (1999) vertical heat solver, vectorized.
 
-TPU-native re-design of `temperature_changes`
+JAX re-design of `temperature_changes`
 (`/root/reference/src/column/ice_therm_bl99.F90:53-811`): the per-column
 Newton-ish iteration with tridiagonal solves becomes a batched
 `lax.while_loop` over all (cell, category) columns at once, with

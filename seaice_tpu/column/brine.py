@@ -1,6 +1,6 @@
 """Brine height dynamics (tr_brine / hbrine).
 
-TPU-native re-design of `/root/reference/src/column/ice_brine.F90`:
+JAX re-design of the reference's `src/column/ice_brine.F90`:
 `preflushing_changes` (:46-130), `compute_microS_mushy` (:139-324),
 `prepare_hbrine` (:328-448), `update_hbrine` (:463-581) and
 `calculate_drho` (:843-945).  The brine-height tracer fbri = hbr/hin

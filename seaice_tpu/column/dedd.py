@@ -1,6 +1,6 @@
 """Delta-Eddington multiple-scattering shortwave (dEdd).
 
-TPU-native re-design of the reference delta-Eddington radiation
+JAX re-design of the reference delta-Eddington radiation
 (`ice_shortwave.F90`: shortwave_dEdd :1187, compute_dEdd :1674,
 solution_dEdd :3140; Briegleb & Light 2007): a two-stream
 delta-Eddington solution through the snow/ice column in three spectral

@@ -1,6 +1,6 @@
 """Column-physics phase drivers.
 
-TPU-native re-design of the reference's MPAS <-> column adapter phase
+JAX re-design of the reference's MPAS <-> column adapter phase
 drivers (`mpas_seaice_column.F`: predynamics :1038, dynamics :1139,
 postdynamics :1208) and the colpkg step routines they call
 (`ice_colpkg.F90`: colpkg_step_therm1 :1789-2408, colpkg_step_therm2,

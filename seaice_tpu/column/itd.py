@@ -1,7 +1,7 @@
 """Ice thickness distribution: category bounds, aggregation, linear
 remapping between categories, small-ice cleanup, and ice strength.
 
-TPU-native re-design of `ice_itd.F90` (aggregation/shift/cleanup) and
+JAX re-design of `ice_itd.F90` (aggregation/shift/cleanup) and
 `linear_itd`/`fit_line` (`/root/reference/src/column/ice_therm_itd.F90:
 69-760`, Lipscomb 2001 linear remapping): the per-cell category-shift
 logic becomes masked dense updates unrolled over the static category

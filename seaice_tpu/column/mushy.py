@@ -1,6 +1,6 @@
 """Mushy-layer thermodynamic relations (ktherm=2 foundation).
 
-TPU-native re-design of `ice_mushy_physics.F90` (the reference default
+JAX re-design of `ice_mushy_physics.F90` (the reference default
 thermodynamics, config_thermodynamics_type='mushy'): the liquidus
 relation (two-branch rational fit with break at Tb=-7.636 C /
 Sb=123.667 ppt), liquid fraction, mush enthalpy/temperature inversions,

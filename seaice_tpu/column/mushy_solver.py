@@ -1,6 +1,6 @@
 """Mushy-layer vertical heat solver (ktherm=2): batched Picard iteration.
 
-TPU-native re-design of the reference mushy temperature solve
+JAX re-design of the reference mushy temperature solve
 (`ice_therm_mushy.F90`: picard_solver :1128-1406 with
 solve_heat_conduction :2110 and the matrix_elements_* family
 :2345-2851): the liquid fraction phi is frozen at its step-initial

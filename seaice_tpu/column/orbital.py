@@ -1,6 +1,6 @@
 """Solar zenith angle for the radiation schemes.
 
-TPU-native stand-in for the reference's orbital machinery
+JAX stand-in for the reference's orbital machinery
 (`ice_orbital.F90` wrapping shr_orb_mod: Berger 1978 orbital
 parameters -> declination + eccentricity factor -> cosine zenith,
 used by compute_coszen for the dEdd shortwave). Here the declination

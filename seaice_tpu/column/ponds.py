@@ -1,7 +1,7 @@
 """Melt ponds (CESM + level-ice schemes) and the simple age /
 first-year-ice tracers.
 
-TPU-native re-design of `ice_meltpond_cesm.F90` (compute_ponds_cesm),
+JAX re-design of `ice_meltpond_cesm.F90` (compute_ponds_cesm),
 `ice_meltpond_lvl.F90` (compute_ponds_lvl :34-281, brine_permeability
 :287-340), `ice_age.F90` and `ice_firstyear.F90`; the reference's
 per-cell branch ladders become masked dense selects over [*B, nCat].

@@ -1,6 +1,6 @@
 """Mechanical redistribution (ridging).
 
-TPU-native re-design of `ice_mechred.F90` (`ridge_ice` :80-597,
+JAX re-design of `ice_mechred.F90` (`ridge_ice` :80-597,
 `ridge_prep` :640, `ridge_itd` :741, `ridge_shift` :1030): the
 per-cell ridging iteration becomes a fixed-count masked loop over all
 cells, with the category loops unrolled (static ncat).

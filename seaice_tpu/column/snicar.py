@@ -1,6 +1,6 @@
 """SNICAR 5-band delta-Eddington shortwave (use_snicar).
 
-TPU-native re-design of `compute_dEdd_5bd`
+JAX re-design of `compute_dEdd_5bd`
 (`/root/reference/src/column/ice_shortwave.F90:3955-5407`, activated by
 config_use_snicar_ad): the snow-covered fraction of each category is
 solved in FIVE spectral bands (visible + 4 near-IR) with snow

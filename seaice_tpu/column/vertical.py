@@ -1,6 +1,6 @@
 """Vertical thermodynamics: growth/melt and the per-category driver.
 
-TPU-native re-design of `thermo_vertical`
+JAX re-design of `thermo_vertical`
 (`/root/reference/src/column/ice_therm_vertical.F90:53-471`) and its
 stages: `init_vertical_profile` (:652), `thickness_changes` (:1026),
 `freeboard` (:1755), `adjust_enthalpy`, `frzmlt_bottom_lateral` (:482).

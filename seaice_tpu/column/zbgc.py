@@ -1,6 +1,6 @@
 """Vertical (z-layer) biogeochemistry.
 
-TPU-native re-design of the reference zBGC stack:
+JAX re-design of the reference zBGC stack:
 `z_biogeochemistry` (`/root/reference/src/column/ice_algae.F90:794-1497`
 — per-tracer vertical FCT advection-diffusion + reactions),
 `algal_dyn` (:1505-2309 — the full reaction network), and the zbio
@@ -8,7 +8,7 @@ driver (`:29-386`).  The brine microstructure inputs (porosity,
 diffusivity iDin, Darcy velocity) come from `brine.py`
 (compute_micro_s_mushy / update_hbrine).
 
-Redesign notes (TPU-first, not a port):
+Redesign notes (array-first, not a port):
   * The reference's per-tracer flux-corrected-transport matrix plus
     scalar tridiagonal solve becomes ONE batched implicit
     advection-diffusion solve on the static (nblyr+1)-point bio grid,

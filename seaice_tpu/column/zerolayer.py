@@ -1,6 +1,6 @@
 """Zero-layer (Semtner 0-layer) thermodynamics, ktherm=0.
 
-TPU-native re-design of `ice_therm_0layer.F90` (zerolayer_temperature):
+JAX re-design of `ice_therm_0layer.F90` (zerolayer_temperature):
 no internal heat capacity — the surface temperature satisfies the
 instantaneous balance fsurf(Tsf) = kh (Tsf - Tbot) through the slab
 (effective conductivity kseaice over hilyr + kratio*hslyr), solved by a

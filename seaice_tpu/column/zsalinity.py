@@ -1,6 +1,6 @@
 """Prognostic vertical salinity (solve_zsal, ktherm=1 companion).
 
-TPU-native re-design of `/root/reference/src/column/ice_zsalinity.F90`
+JAX re-design of the reference's `src/column/ice_zsalinity.F90`
 (`zsalinity` :38-182 -> `solve_zsalinity` :188-425 -> `solve_S_dt`
 :435-885): the bulk salinity on the bio grid evolves by gravity
 drainage (the Rayleigh-number-gated convective diffusivity iDin from

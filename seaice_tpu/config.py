@@ -1,6 +1,6 @@
 """Typed configuration tree.
 
-The TPU-native replacement for the reference's Registry.xml namelist records
+The JAX replacement for the reference's Registry.xml namelist records
 (`/root/reference/src/Registry.xml`): one frozen dataclass per namelist
 record, resolved at trace time (scheme selection happens in Python before
 jit, exactly as the reference selects schemes at init).
@@ -75,20 +75,6 @@ class VelocitySolverConfig:
     use_surface_tilt: bool = True
     geostrophic_surface_tilt: bool = True
     ocean_stress_type: OceanStressType = OceanStressType.QUADRATIC
-    # fused Pallas subcycle kernel on raster-quad meshes
-    # (dynamics/pallas_evp.py): None = auto-enable when eligible
-    use_pallas_subcycle: Optional[bool] = None
-    # fully-fused panel subcycle LOOP (dynamics/pallas_panel_fused.py,
-    # one kernel per solve, basis VMEM-resident): None = auto when
-    # eligible (panel mesh, standard EVP, quadratic ocean stress,
-    # N <= 64); False = fall back to the per-subcycle panel kernel
-    use_fused_panel_loop: Optional[bool] = None
-    # fully-fused UNSTRUCTURED subcycle loop
-    # (dynamics/pallas_unstructured.py, one kernel per solve, gathers
-    # as exact lane shuffles): None = auto when eligible (any
-    # non-panel/non-raster mesh, standard EVP, quadratic ocean stress,
-    # single device); False = XLA gather path
-    use_fused_unstructured: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,9 +84,6 @@ class AdvectionConfig:
     monotonic: bool = True
     conservation_check: bool = False
     monotonicity_check: bool = False
-    # fused Pallas flux-integration kernel (transport/pallas_flux.py):
-    # None = auto (on for TPU, interpret-mode equality tests on CPU)
-    use_pallas_flux: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Coupled driver: the MCT/NUOPC ModelAdvance loop.
 
-TPU-native re-design of the reference coupler drivers
+JAX re-design of the reference coupler drivers
 (`driver/ice_comp_mct.F`: ice_init_mct :118, ice_run_mct :1004;
 `driver_nuopc/ice_comp_nuopc.F90` ModelAdvance): the external coupler
 calls `advance(import_fields)` once per coupling interval; internally
@@ -10,7 +10,7 @@ returns their time means in the export dict — the reference's
 flux-averaging semantics (`seaice_column_aggregate_fluxes` feeding the
 averaged `*_av` coupler fields).
 
-TPU shape: the whole sub-loop is ONE jitted `lax.scan` — one device
+Shape: the whole sub-loop is ONE jitted `lax.scan` — one device
 dispatch per coupling interval, with per-substep solar zenith angles
 computed on device from the traced clock scalars.
 """

@@ -1,6 +1,6 @@
 """Coupled-driver surface: import/export field dictionaries.
 
-TPU-native re-design of the reference coupler caps (`driver_nuopc/
+JAX re-design of the reference coupler caps (`driver_nuopc/
 ice_import_export.F90`: advertise :126-290, `ice_import` :487,
 `ice_export` :975; MCT analog `driver/ice_comp_mct.F`): a host-side
 field-dict API with the NUOPC standard names, so an external coupler

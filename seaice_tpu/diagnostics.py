@@ -1,7 +1,7 @@
 """Diagnostics: state sanity checks, conservation budgets, regional
 statistics, and phase timers.
 
-TPU-native re-design of `mpas_seaice_diagnostics.F` (seaice_check_state
+JAX re-design of `mpas_seaice_diagnostics.F` (seaice_check_state
 :170, load-balance timers :504) and the conservation_check / regional
 statistics analysis members
 (`src/analysis_members/mpas_seaice_conservation_check.F:1915+`,
@@ -243,7 +243,7 @@ def hemisphere_region_mask(mesh) -> "np.ndarray":
 
 class PhaseTimers:
     """Named wall-clock timers with block_until_ready fencing — the
-    TPU analog of the reference's hierarchical mpas_timer
+    JAX analog of the reference's hierarchical mpas_timer
     instrumentation (velocity_solver.F:579-669)."""
 
     def __init__(self):

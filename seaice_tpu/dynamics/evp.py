@@ -6,7 +6,7 @@ loop (strain -> EVP stress -> stress divergence -> ocean-stress coefficient
 -> 2x2 implicit momentum solve), and the post-subcycle diagnostics
 (reference `mpas_seaice_velocity_solver.F:562-3700`). The subcycle loop is
 a `lax.fori_loop` so the whole solver compiles to a single XLA program with
-the working set resident on device — the TPU-native equivalent of the
+the working set resident on device — the JAX equivalent of the
 reference's OpenACC persistent data region (mesh_pool.F:145-172).
 """
 
@@ -45,13 +45,10 @@ class DynamicsTensors:
     area_cell: Any               # [nCells]
     area_triangle: Any           # [nVertices]
     panel: Optional[Any] = None  # panel-shift tensors (icosahedral)
-    unstructured: Optional[Any] = None  # fused-gather plan (any mesh)
 
 
 def build_dynamics_tensors(mesh: Mesh, cfg: Config,
-                           dtype=jnp.float32,
-                           build_unstructured: bool = True
-                           ) -> DynamicsTensors:
+                           dtype=jnp.float32) -> DynamicsTensors:
     """Init-time basis precompute + device upload
     (reference seaice_init_velocity_solver, velocity_solver.F:85-386)."""
     from ..ops.basis import compute_variational_basis
@@ -79,30 +76,8 @@ def build_dynamics_tensors(mesh: Mesh, cfg: Config,
     if lay is not None and not use_weak and mesh.max_edges == 6:
         from .variational_panel import build_panel_tensors
         panel = build_panel_tensors(mesh, lay, vb, dtype)
-    # fused unstructured-gather plan (dynamics/gather_plan.py): built
-    # for any mesh without panel structure when the configuration can
-    # reach the fused kernel (the model decides engagement at step
-    # build; the plan itself is backend-agnostic)
-    unstructured = None
-    v = cfg.velocity
-    if (build_unstructured and v.use_fused_unstructured is not False
-            and not use_weak and panel is None
-            and v.constitutive_relation == ConstitutiveRelation.EVP
-            and not v.average_variational_strains
-            and v.use_ocean_stress
-            and v.ocean_stress_type == OceanStressType.QUADRATIC
-            # VMEM cap: the resident basis tiles are ~5 * 1.15 KB/cell;
-            # past ~64k cells the kernel would not fit (streaming the
-            # basis per group is the planned lift)
-            and mesh.n_cells <= 65536):
-        from ..mesh.structured import detect_raster_quad
-        if (detect_raster_quad(mesh) is None
-                or v.use_fused_unstructured is True):
-            from .gather_plan import build_unstructured_plan
-            unstructured = build_unstructured_plan(mesh, vb, dtype)
     return DynamicsTensors(
         panel=panel,
-        unstructured=unstructured,
         mesh=mesh.tensors(dtype),
         basis_gradient_u=jnp.asarray(vb.basis_gradient_u, dtype),
         basis_gradient_v=jnp.asarray(vb.basis_gradient_v, dtype),
@@ -303,18 +278,40 @@ def _air_stress(forcing: DynamicsForcing, mass: IceMassState,
 
 # -- solver -------------------------------------------------------------------
 
+def velocity_path(cfg: Config, dyn: DynamicsTensors, raster=None,
+                  panel_n: Optional[int] = None) -> str:
+    """The elastic-subcycle formulation make_velocity_solver runs, chosen
+    from the scheme and from the structure the mesh carries:
+
+    'weak'      line-integral scheme (dynamics/weak.py);
+    'reference' variational.py on the [nCells, maxEdges] layout (averaged
+                strains need it);
+    'panel'     rhombic-panel shifts on a panel-ordered icosahedral mesh
+                (mesh/panels.py + dynamics/variational_panel.py);
+    'raster'    structured shifts on a planar regular quad grid without
+                metric terms (mesh/structured.py);
+    'gather'    cell-minor gathers for any other connectivity
+                (dynamics/variational_fast.py)."""
+    v = cfg.velocity
+    if v.strain_scheme == StrainScheme.WEAK:
+        return "weak"
+    if dyn.fast is None or v.average_variational_strains:
+        return "reference"
+    if panel_n is not None and dyn.panel is not None:
+        return "panel"
+    if raster is not None and not v.include_metric_terms:
+        return "raster"
+    return "gather"
+
+
 def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
                          halo_exchange_vertex=None,
                          halo_exchange_cell_field=None,
                          halo_exchange_vertex_field=None,
                          min_dv_edge: float = None,
                          raster=None,
-                         use_pallas: bool = False,
                          halo_overlap=None,
-                         panel_n: Optional[int] = None,
-                         panel_mesh=None,
-                         unstructured_plan=None,
-                         plan_halo_exchange=None):
+                         panel_n: Optional[int] = None):
     """Build the dynamics-step function.
 
     The returned step takes the DynamicsTensors as its first ARGUMENT (not
@@ -334,10 +331,6 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
     min_dv_edge: global minimum edge length (needed for revised EVP; the
     reference computes it with an MPI min-reduction at init,
     constitutive_relation.F:133-162).
-    use_pallas: run the elastic subcycle loop as ONE fused Pallas kernel
-    (dynamics/pallas_evp.py) — caller asserts eligibility (raster quad
-    mesh, cell-constant basis, f32-or-interpret); requires standard EVP,
-    quadratic ocean stress, identity vertex halos.
     halo_overlap: (SubcycleOverlap, exchange_from_buf, n_owned) for the
     sharded interior/boundary comm-compute overlap: next-iteration
     velocities at the export vertices are computed first through a small
@@ -364,102 +357,6 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
         raise NotImplementedError(
             "mixed weak/variational strain and stress-divergence schemes "
             "are not supported; choose one scheme for both")
-
-    fused_subcycle = None
-    fused_panel_cell = None
-    fused_panel_all = None
-    fused_unstructured = None
-    panel_nppe = None
-    fused_unstructured_loop = None
-    if use_pallas and panel_n is None and raster is None and \
-            unstructured_plan is not None:
-        # ANY-connectivity fused whole-loop kernel
-        # (dynamics/pallas_unstructured.py): gathers as lane shuffles
-        if use_weak or relation != ConstitutiveRelation.EVP or \
-                v_cfg.average_variational_strains or \
-                not v_cfg.use_ocean_stress or \
-                v_cfg.ocean_stress_type != OceanStressType.QUADRATIC:
-            raise ValueError(
-                "use_fused_unstructured requires the variational scheme "
-                "with standard EVP and quadratic ocean stress")
-        if halo_exchange_vertex is None:
-            from .pallas_unstructured import build_unstructured_solver
-            fused_unstructured = build_unstructured_solver(
-                unstructured_plan,
-                dt_elastic=dt_e, damping_timescale=damping_t,
-                n_subcycles=v_cfg.elastic_subcycle_number,
-                include_metric=v_cfg.include_metric_terms)
-        elif plan_halo_exchange is not None:
-            # SHARDED: one fused kernel launch per subcycle, the
-            # per-subcycle vertex halo exchange interleaved in plan
-            # coordinates (reference exchanges every subcycle,
-            # velocity_solver.F:2546-2584)
-            from .pallas_unstructured import (
-                build_unstructured_loop_solver)
-            fused_unstructured_loop = build_unstructured_loop_solver(
-                unstructured_plan,
-                dt_elastic=dt_e, damping_timescale=damping_t,
-                include_metric=v_cfg.include_metric_terms)
-        else:
-            raise ValueError(
-                "use_fused_unstructured under sharding requires the "
-                "plan-order halo exchange (plan_halo_exchange)")
-    elif use_pallas and panel_n is not None:
-        # spherical panel meshes: fuse the cell-side subcycle pipeline
-        # (dynamics/pallas_panel.py); vertex-side work stays in XLA
-        if use_weak or relation != ConstitutiveRelation.EVP or \
-                v_cfg.average_variational_strains:
-            raise ValueError(
-                "use_pallas on a panel mesh requires the variational "
-                "scheme with standard EVP")
-        # preferred: the fully-fused whole-loop kernel (one launch per
-        # solve, basis VMEM-resident, dynamics/pallas_panel_fused.py)
-        want_loop = v_cfg.use_fused_panel_loop
-        loop_ok = (want_loop is not False
-                   and panel_mesh is not None
-                   and getattr(panel_mesh, "panel_layout", None)
-                   is not None
-                   and panel_n <= 64
-                   and halo_exchange_vertex is None
-                   and v_cfg.use_ocean_stress
-                   and v_cfg.ocean_stress_type ==
-                   OceanStressType.QUADRATIC)
-        if want_loop is True and not loop_ok:
-            raise ValueError(
-                "use_fused_panel_loop=True but the configuration is "
-                "ineligible (needs the panel mesh object, N <= 64, "
-                "quadratic ocean stress, single device)")
-        if loop_ok:
-            from .pallas_panel_fused import build_fused_panel_solver
-            fused_panel_all = build_fused_panel_solver(
-                panel_mesh, panel_mesh.panel_layout,
-                dt_elastic=dt_e, damping_timescale=damping_t,
-                n_subcycles=v_cfg.elastic_subcycle_number,
-                include_metric=v_cfg.include_metric_terms)
-        else:
-            from .pallas_panel import build_panel_cell_kernel
-            fused_panel_cell, panel_nppe = build_panel_cell_kernel(
-                panel_n, 10 * (panel_n + 1) ** 2 + 2,
-                dt_elastic=dt_e, damping_timescale=damping_t,
-                include_metric=v_cfg.include_metric_terms)
-    elif use_pallas:
-        if (use_weak or relation != ConstitutiveRelation.EVP or
-                raster is None or v_cfg.include_metric_terms or
-                v_cfg.average_variational_strains or
-                not v_cfg.use_ocean_stress or
-                v_cfg.ocean_stress_type != OceanStressType.QUADRATIC or
-                halo_exchange_vertex is not None):
-            raise ValueError(
-                "use_pallas requires a raster-quad mesh, standard EVP, "
-                "quadratic ocean stress, no metric terms, and identity "
-                "vertex halos (single device)")
-        from .pallas_evp import build_pallas_subcycle
-        fused_subcycle = build_pallas_subcycle(
-            raster, dt_elastic=dt_e, damping_timescale=damping_t,
-            n_subcycles=v_cfg.elastic_subcycle_number)
-        if fused_subcycle is None:
-            raise ValueError("raster layout ineligible for the fused "
-                             "Pallas subcycle kernel")
 
     if halo_exchange_vertex is None:
         def halo_exchange_vertex(u, v):
@@ -662,8 +559,8 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
 
         # --- elastic subcycle loop (reference :2447-2592) ---
 
-        use_fast = (not use_weak) and dyn.fast is not None and \
-            not v_cfg.average_variational_strains
+        path = velocity_path(cfg, dyn, raster, panel_n)
+        use_fast = path in ("panel", "raster", "gather")
         metric = v_cfg.include_metric_terms
 
         def momentum_update(u, v, div_u, div_v):
@@ -679,13 +576,8 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
                 air_u, air_v, tilt_u, tilt_v, ocean_u, ocean_v,
                 ocean_coeff, solve_velocity)
 
-        # structured raster shifts replace the gathers when the mesh is
-        # a regular quad grid (mesh/structured.py); planar only
-        use_raster = (use_fast and raster is not None and not metric)
-        # rhombic-panel shifts on icosahedral global meshes
-        # (mesh/panels.py + dynamics/variational_panel.py)
-        use_panel = (use_fast and panel_n is not None and
-                     dyn.panel is not None)
+        use_raster = path == "raster"
+        use_panel = path == "panel"
 
         if halo_overlap is not None:
             # --- interior/boundary split: overlap the per-subcycle halo
@@ -787,58 +679,6 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
                 0, v_cfg.elastic_subcycle_number, body,
                 (u, v, s11.T, s22.T, s12.T))
             s11, s22, s12 = t11.T, t22.T, t12.T
-        elif fused_unstructured is not None:
-            # ONE Pallas kernel runs the whole subcycle loop for
-            # arbitrary connectivity (dynamics/pallas_unstructured.py)
-            u, v, t11, t22, t12 = fused_unstructured(
-                dyn.unstructured, u, v, s11.T, s22.T, s12.T, pressure,
-                solve_stress, uo_v, vo_v, mass_vertex, mass_f,
-                air_u + tilt_u, air_v + tilt_v, ocean_u, ocean_v,
-                solve_velocity, area_vertex)
-            s11, s22, s12 = t11.T, t22.T, t12.T
-        elif fused_unstructured_loop is not None:
-            # SHARDED fused path: one kernel launch per subcycle with
-            # the vertex halo exchange between launches; the state
-            # stays in plan layout across the loop (conversions once)
-            prep, step1, finish = fused_unstructured_loop
-            carry, ctx = prep(
-                dyn.unstructured, u, v, s11.T, s22.T, s12.T, pressure,
-                solve_stress, uo_v, vo_v, mass_vertex, mass_f,
-                air_u + tilt_u, air_v + tilt_v, ocean_u, ocean_v,
-                solve_velocity, area_vertex)
-
-            def body(_, carry):
-                carry = step1(dyn.unstructured, carry, ctx)
-                u_pl, v_pl = plan_halo_exchange(carry[0], carry[1])
-                return (u_pl, v_pl) + tuple(carry[2:])
-
-            carry = jax.lax.fori_loop(
-                0, v_cfg.elastic_subcycle_number, body, carry)
-            u, v, t11, t22, t12 = finish(dyn.unstructured, carry)
-            s11, s22, s12 = t11.T, t22.T, t12.T
-        elif fused_panel_all is not None:
-            # ONE Pallas kernel runs the whole subcycle loop on the
-            # panel planes with the basis VMEM-resident
-            # (dynamics/pallas_panel_fused.py)
-            u, v, t11T, t22T, t12T = fused_panel_all(
-                dyn.panel, u, v, s11.T, s22.T, s12.T, pressure,
-                solve_stress, uo_v, vo_v, mass_vertex, mass_f,
-                air_u + tilt_u, air_v + tilt_v, ocean_u, ocean_v,
-                solve_velocity, area_vertex)
-            s11, s22, s12 = t11T.T, t22T.T, t12T.T
-        elif fused_subcycle is not None:
-            # ONE Pallas kernel runs all subcycles with u/v and the
-            # corner stresses VMEM-resident (dynamics/pallas_evp.py)
-            ft = dyn.fast
-            u, v, t11, t22, t12 = fused_subcycle(
-                ft.basis_grad_T[:, 0, :, 0], ft.basis_grad_T[:, 1, :, 0],
-                ft.basis_int_T[:, 0, :, 0], ft.basis_int_T[:, 1, :, 0],
-                u, v, s11.T, s22.T, s12.T, pressure,
-                solve_stress.astype(dtype), uo_v, vo_v, mass_vertex,
-                mass_f, air_u, air_v, tilt_u, tilt_v, ocean_u, ocean_v,
-                solve_velocity.astype(dtype), area_vertex,
-                ft.denominator.astype(dtype))
-            s11, s22, s12 = t11.T, t22.T, t12.T
         elif use_fast:
             # transposed (cell-minor) layout; see variational_fast.py
             from . import variational_fast as vf
@@ -854,49 +694,9 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
                     solve_stress)[None, :]
                 p_T = zc.at[dyn.panel.cell_pad_idx].set(
                     pressure)[None, :]
-                if fused_panel_cell is not None:
-                    exc_cols = dyn.panel.exc_pad_cols
-                    # the kernel must not touch the exception columns
-                    ss_kernel = ss_T[0].at[exc_cols].set(0.0)
-                    p_exc = p_T[:, exc_cols]
-                    ss_exc = ss_T[:, exc_cols]
 
             def body(_, carry):
                 u, v, t11, t22, t12 = carry
-                if use_panel and fused_panel_cell is not None:
-                    pt = dyn.panel
-                    cplanes = vpn.corner_planes(
-                        pt, panel_n, u, v, metric, panel_nppe)
-                    (t11n, t22n, t12n, pu, pv, mu, mv) = \
-                        fused_panel_cell(
-                            cplanes, t11, t22, t12, p_T[0],
-                            ss_kernel, pt.basis_grad_S,
-                            pt.basis_int_S, pt.basis_metric_S)
-                    # 12-cell exception path: ring-indexed strain +
-                    # stress update, overwriting the kernel's columns
-                    x11, x22, x12 = vpn.exception_strain(
-                        pt, u, v, metric)
-                    n11e, n22e, n12e, _ = \
-                        constitutive.evp_stress_update(
-                            t11[:, exc_cols], t22[:, exc_cols],
-                            t12[:, exc_cols], x11, x22, x12,
-                            p_exc, dt_e, damping_t)
-                    t11 = t11n.at[:, exc_cols].set(
-                        jnp.where(ss_exc > 0, n11e, t11[:, exc_cols]))
-                    t22 = t22n.at[:, exc_cols].set(
-                        jnp.where(ss_exc > 0, n22e, t22[:, exc_cols]))
-                    t12 = t12n.at[:, exc_cols].set(
-                        jnp.where(ss_exc > 0, n12e, t12[:, exc_cols]))
-                    if metric:
-                        stacked = jnp.stack([pu, pv, mu, mv], axis=-1)
-                    else:
-                        stacked = jnp.stack([pu, pv], axis=-1)
-                    div_u, div_v = vpn.divergence_finish(
-                        pt, panel_n, stacked, t11, t22, t12,
-                        solve_velocity, metric)
-                    u, v = momentum_update(u, v, div_u, div_v)
-                    u, v = halo_exchange_vertex(u, v)
-                    return (u, v, t11, t22, t12)
                 if use_panel:
                     e11, e22, e12 = vpn.strain_tensor_P(
                         dyn.panel, panel_n, u, v, metric)

@@ -1,12 +1,12 @@
 """Variational (FEM) strain and stress-divergence operators.
 
-TPU-native formulation of the reference's hot kernels
+JAX formulation of the reference's hot kernels
 (`mpas_seaice_velocity_solver_variational.F:575-1184`). The Fortran
 per-vertex gather loops become two-stage dense ops:
 
   strain:   gather vertex velocities per cell, then a per-cell
             [maxEdges x maxEdges] contraction with the basis-gradient
-            tensor (a batched small matmul the XLA/TPU vectorizer eats).
+            tensor (a batched small matmul).
   stressDiv: per-cell contraction of corner stresses with the
             basis-integral tensors, then a vertexDegree-wide gather —
             each cell's contraction is computed once and reused by all of
@@ -15,9 +15,13 @@ per-vertex gather loops become two-stage dense ops:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..mesh.core import MeshTensors
+
+# data contractions: f32 operands must not drop to TF32 on the GPU
+_HI = jax.lax.Precision.HIGHEST
 
 
 def strain_tensor(u_vertex, v_vertex, tan_lat_vertex, mesh: MeshTensors,
@@ -33,10 +37,11 @@ def strain_tensor(u_vertex, v_vertex, tan_lat_vertex, mesh: MeshTensors,
     v_c = v_vertex[voc] * mask
 
     # e[c, g] = sum_b vel[c, b] * basisGradient[c, b, g]
-    e11 = jnp.einsum("cb,cbg->cg", u_c, basis_gradient_u)
-    e22 = jnp.einsum("cb,cbg->cg", v_c, basis_gradient_v)
-    e12 = 0.5 * (jnp.einsum("cb,cbg->cg", u_c, basis_gradient_v) +
-                 jnp.einsum("cb,cbg->cg", v_c, basis_gradient_u))
+    e11 = jnp.einsum("cb,cbg->cg", u_c, basis_gradient_u, precision=_HI)
+    e22 = jnp.einsum("cb,cbg->cg", v_c, basis_gradient_v, precision=_HI)
+    e12 = 0.5 * (
+        jnp.einsum("cb,cbg->cg", u_c, basis_gradient_v, precision=_HI) +
+        jnp.einsum("cb,cbg->cg", v_c, basis_gradient_u, precision=_HI))
 
     # spherical metric terms at the corner's own vertex
     # (reference variational.F:657-662)
@@ -76,12 +81,13 @@ def stress_divergence(s11, s22, s12, tan_lat_vertex, mesh: MeshTensors,
     """
     # per-cell contractions over the stress-corner axis s:
     #   P*[c, j] — reused by every vertex of cell c
-    pu = (jnp.einsum("cs,csj->cj", s11, basis_integrals_u) +
-          jnp.einsum("cs,csj->cj", s12, basis_integrals_v))
-    pv = (jnp.einsum("cs,csj->cj", s22, basis_integrals_v) +
-          jnp.einsum("cs,csj->cj", s12, basis_integrals_u))
-    mu = jnp.einsum("cs,csj->cj", s12, basis_integrals_metric)
-    mv = jnp.einsum("cs,csj->cj", s11, basis_integrals_metric)
+    def contract(s, b):
+        return jnp.einsum("cs,csj->cj", s, b, precision=_HI)
+
+    pu = contract(s11, basis_integrals_u) + contract(s12, basis_integrals_v)
+    pv = contract(s22, basis_integrals_v) + contract(s12, basis_integrals_u)
+    mu = contract(s12, basis_integrals_metric)
+    mv = contract(s11, basis_integrals_metric)
 
     cov = mesh.cells_on_vertex
     cva = mesh.cell_vertices_at_vertex

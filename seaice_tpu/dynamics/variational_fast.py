@@ -1,14 +1,12 @@
-"""TPU-optimized variational kernels: transposed (cell-minor) layout.
+"""Variational kernels in the transposed (cell-minor) layout.
 
 The straightforward [nCells, maxEdges] layout puts the tiny corner axis
-(6-7) in the TPU lane dimension, wasting ~95% of the VPU on padding, and
-issues one gather per field. This fast path:
+(6-7) minor-most and issues one gather per field. This path:
 
-  * keeps all corner fields as [maxEdges, nCells] (cells in lanes ->
-    full vector utilization; measured ~25x faster elementwise/contract);
-  * stacks fields before gathering (gather cost is per-index, not
-    per-element: one [*, 2]-stacked gather costs ~the same as one
-    scalar gather);
+  * keeps all corner fields as [maxEdges, nCells], so the long cell
+    axis is the contiguous one for elementwise work and contractions;
+  * stacks fields before gathering (one [*, 2]-stacked gather instead
+    of one gather per field);
   * elides the spherical metric-term arithmetic at trace time on
     planar meshes.
 
@@ -135,8 +133,8 @@ def stress_divergence_T(ft: FastTensors, s11, s22, s12, solve_velocity,
 # -- structured (raster quad) fast path --------------------------------------
 # When the mesh is a raster-ordered regular quad grid (box/square
 # testcases), the two per-subcycle gathers become static 2-D shifts:
-# contiguous slices on the VPU instead of per-index gathers (the
-# measured subcycle bottleneck).  See mesh/structured.py.
+# contiguous slices instead of per-index gathers.  See
+# mesh/structured.py.
 
 def gather_corners_S(layout, u, v):
     """Vertex velocities at cell corners via raster shifts.

@@ -19,7 +19,7 @@ corner/dual stencil offset is a single flat slice:
     s0:+1  s1:-N  s2:0 (t=0)   s3:-N  s4:0  s5:-(N+1) (t=1)
   dual (vertex q reads pu[slot] at q + D'):
     t=0: s0:-1  s1:+N  s2:0    t=1: s3:+N  s4:0  s5:+(N+1)
-All arrays keep the long padded axis LAST (VPU lanes); numerics are
+All arrays keep the long padded axis LAST (contiguous); numerics are
 identical contractions to variational_fast with the corner axis
 re-indexed by pattern slot (tests/test_panels.py asserts equality
 against the gather path to roundoff).
@@ -78,9 +78,8 @@ class PanelTensors:
     # cell column)
     ghost_pu_dst: Any      # [nGP] flat into [6, npp]
     ghost_pu_src: Any      # [nGP] flat into [6, npc] (slot*npc + col)
-    # full GATHER maps replacing the pad+scatter builders (TPU scatter
-    # serializes at ~0.4 us/row — the two ghost scatters dominated the
-    # subcycle; a single contiguous-output gather is ~4x cheaper):
+    # full GATHER maps replacing the pad+scatter builders (one
+    # contiguous-output gather instead of two ghost scatters):
     plane_src: Any         # [2*npp] -> row into [1 zero row + uv]
     pu_src_full: Any       # [6*npp] -> flat into [6, npc]
     # dense EDGE-ROW maps: every seam ghost lives on the pad row/col of
@@ -88,9 +87,6 @@ class PanelTensors:
     # or b=N), so the padded planes are a pure reshape of the
     # panel-major real arrays plus two tiny gathered edge strips
     # assembled by static concat — no scatter, no O(npp) gather
-    # (measured on v5e at subdiv 6: the full-map plane gather was
-    # 260 us and the pu ghost scatter 1100 us per subcycle; the
-    # edge-strip build is ~10 us)
     plane_row_src: Any     # [2, 10, N+1] -> row into [1 zero + uv]
     plane_col_src: Any     # [2, 10, N]   -> row into [1 zero + uv]
     pu_row_src: Any        # [6, 10, N+1] -> flat into [1 zero + 6*npc]
@@ -347,8 +343,7 @@ def strain_tensor_P(pt: PanelTensors, N: int, u, v,
 
 def divergence_partials(pt: PanelTensors, s11, s22, s12,
                         include_metric: bool = False):
-    """Cell-side partial products feeding the dual accumulation
-    (split out so the Pallas fused kernel can produce them directly).
+    """Cell-side partial products feeding the dual accumulation.
     Returns stacked [6, npc, F] (F=4 with metric)."""
     bu = pt.basis_int_S[:, 0]
     bv = pt.basis_int_S[:, 1]
@@ -382,10 +377,8 @@ def divergence_finish(pt: PanelTensors, N: int, stacked,
     # seam ghost refresh: divergence ghosts live only on the pad strips
     # (a = 0 row, b = N column) of each panel, so the ghost values are
     # two tiny gathered edge strips merged by broadcast + select —
-    # full-array elementwise ops the VPU streams at bandwidth.  The
-    # row scatter this replaces serialized at ~0.9 ms/subcycle on v5e
-    # at subdiv 6; strided static-slice sets still cost ~0.5 ms (TPU
-    # copies interior strided slices row by row).
+    # full-array elementwise ops instead of a row scatter or strided
+    # static-slice sets.
     src_flat = stacked.reshape(6 * npc, F)
     gr0 = src_flat[pt.pu_row_src]                # [6, 10, N+1, F] a=0
     gcN = src_flat[pt.pu_col_src]                # [6, 10, N+1, F] b=N
@@ -448,53 +441,3 @@ def divergence_finish(pt: PanelTensors, N: int, stacked,
     du = jnp.where(solve_velocity > 0, du / pt.denominator, 0.0)
     dv = jnp.where(solve_velocity > 0, dv / pt.denominator, 0.0)
     return du, dv
-
-
-# -- Pallas-path helpers ------------------------------------------------------
-
-def corner_planes(pt: PanelTensors, N: int, u, v,
-                  include_metric: bool, npc_pad: int):
-    """Pre-shifted corner vertex fields [6(b), F, npc_pad] for the
-    fused cell kernel: the plane gather of `_vertex_planes` transposed
-    to keep the long panel axis minor, then the six panel-shift corner
-    reads materialized as XLA static slices.  Doing the shifts here
-    keeps every Pallas load block-aligned (Mosaic rejects lane-dim
-    loads at offsets not provably multiples of 128); the extra HBM
-    traffic is ~6x a [F, npc] plane per subcycle, negligible against
-    the basis stream."""
-    pad0 = N + 1
-    npp = 10 * pad0 * pad0
-    uv = jnp.stack([u, v], axis=-1)
-    if include_metric:
-        uv = jnp.concatenate([uv, pt.tan_lat_vertex[:, None]], axis=-1)
-    F = uv.shape[-1]
-    planes = _vertex_planes(pt, N, uv)               # [2, npp, F]
-    pm = jnp.moveaxis(planes, 2, 1)                  # [2, F, npp]
-    # shifted windows reach flat index d + q for q < npc_pad with
-    # d in [-pad0, +1]; zero-extend to cover both ends
-    tail = max(0, npc_pad + 1 - npp)
-    pmp = jnp.pad(pm, ((0, 0), (0, 0), (pad0, tail)))
-    return jnp.stack([
-        pmp[t, :, pad0 + (di - 1) * pad0 + dj + 1:]
-        [:, :npc_pad]
-        for (di, dj, t) in CORNER_OFFSETS])
-
-
-def exception_strain(pt: PanelTensors, u, v,
-                     include_metric: bool = False):
-    """Ring-indexed strain for the 12 exception cells (the tiny
-    gather path shared by the XLA and Pallas formulations)."""
-    uve = jnp.stack([u, v], axis=-1)[pt.exc_voc] * \
-        pt.exc_mask[..., None]
-    ue, ve = uve[..., 0], uve[..., 1]
-    egx = pt.exc_basis_grad[:, 0]
-    egy = pt.exc_basis_grad[:, 1]
-    x11 = (ue[:, None, :] * egx).sum(0)
-    x22 = (ve[:, None, :] * egy).sum(0)
-    x12 = 0.5 * ((ue[:, None, :] * egy).sum(0) +
-                 (ve[:, None, :] * egx).sum(0))
-    if include_metric:
-        tle = pt.tan_lat_vertex[pt.exc_voc] * pt.exc_mask
-        x11 = x11 - ve * tle
-        x12 = x12 + 0.5 * ue * tle
-    return x11, x22, x12

@@ -1,6 +1,6 @@
 """Weak (line-integral) strain and stress-divergence operators.
 
-TPU-native re-design of the reference weak scheme
+JAX re-design of the reference weak scheme
 (`mpas_seaice_velocity_solver_weak.F`: strain :112, stress divergence
 :493) and its normal-vector init (`mpas_seaice_mesh.F`:
 seaice_normal_vectors :703-1000): Green's-theorem strain on primal

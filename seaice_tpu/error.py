@@ -1,6 +1,6 @@
 """Critical-error handling: cooperative abort with full state dump.
 
-TPU-native re-design of `mpas_seaice_error.F` (seaice_check_critical_
+JAX re-design of `mpas_seaice_error.F` (seaice_check_critical_
 error :80 — max-reduce an abort flag across ranks, write the abort
 stream, halt) and the Registry abort/abort_block crash-dump streams
 (Registry.xml:2163-2248): the abort decision comes from the jit-able

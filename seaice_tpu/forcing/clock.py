@@ -1,6 +1,6 @@
 """Model clock and alarms (noleap calendar).
 
-TPU-native replacement for the mpass_timekeeping framework consumed by
+JAX replacement for the mpass_timekeeping framework consumed by
 the reference core (`mpas_seaice_core.F:147-189,306-371`): a plain
 Python clock advanced by the host run loop; jitted kernels receive the
 derived scalars (day-of-year, seconds-of-day) as inputs.

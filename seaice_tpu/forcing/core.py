@@ -1,6 +1,6 @@
 """CORE atmospheric + NCAR oceanic forcing with time interpolation.
 
-TPU-native replacement for `seaice_forcing_init/get`
+JAX replacement for `seaice_forcing_init/get`
 (`/root/reference/src/shared/mpas_seaice_forcing.F:68-830`) and the
 framework MPAS_forcing group machinery it drives: a ForcingSeries holds
 a cyclic time axis of per-cell fields; the host run loop asks for the

@@ -1,6 +1,6 @@
 """I/O: MPAS mesh reading, checkpoint/restart, output streams.
 
-TPU-native replacement for the PIO/stream-manager layer the reference
+JAX replacement for the PIO/stream-manager layer the reference
 links against (mpass_stream_manager; streams defined in
 Registry.xml:1851-2248)."""
 

@@ -1,6 +1,6 @@
 """Checkpoint / restart.
 
-TPU-native replacement for the reference's Registry-defined `restart`
+JAX replacement for the reference's Registry-defined `restart`
 stream + restart_timestamp protocol (`mpas_seaice_core.F:341-354`,
 Registry.xml:1910-2014): the full State pytree plus clock metadata is
 written bitwise to an npz file; an atomically-updated

@@ -1,6 +1,6 @@
 """NetCDF forcing-file readers (CORE atmosphere / NCAR ocean).
 
-TPU-native replacement for the reference's forcing streams
+JAX replacement for the reference's forcing streams
 (`/root/reference/src/shared/mpas_seaice_forcing.F:68-306` CORE
 six-hourly + monthly atmosphere, :1188 NCAR monthly ocean; stream
 definitions Registry.xml:1851-2248): forcing files hold [nTimes,

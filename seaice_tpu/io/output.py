@@ -1,6 +1,6 @@
 """Output streams: append-mode history files.
 
-TPU-native replacement for the Registry `output` stream
+JAX replacement for the Registry `output` stream
 (Registry.xml:2088-2161): cell/vertex fields appended per output alarm
 to a classic-netCDF file (scipy backend; one time-record per write).
 """

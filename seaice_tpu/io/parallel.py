@@ -1,6 +1,6 @@
 """Parallel (per-shard) I/O: gatherless restart and history streams.
 
-TPU-native replacement for the reference's PIO-based parallel I/O
+JAX replacement for the reference's PIO-based parallel I/O
 (`config_pio_num_iotasks` / `config_pio_stride`, Registry.xml:380-396,
 and the MPAS stream manager writing each task's owned elements directly
 into shared NetCDF files).  Instead of one shared file written through

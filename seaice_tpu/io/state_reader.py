@@ -1,6 +1,6 @@
 """File-based initial ice state (MPAS input-stream analog).
 
-TPU-native replacement for the reference's Registry `input` stream ice
+JAX replacement for the reference's Registry `input` stream ice
 fields (Registry.xml:1851-1909: iceAreaCategory, iceVolumeCategory,
 snowVolumeCategory, surfaceTemperature, iceEnthalpy, iceSalinity,
 snowEnthalpy, uVelocity, vVelocity read at init,

@@ -1,6 +1,6 @@
 """Static mesh description.
 
-The TPU-native replacement for the reference's mesh pool
+The JAX replacement for the reference's mesh pool
 (`/root/reference/src/shared/mpas_seaice_mesh.F`,
 `mpas_seaice_mesh_pool.F`): a host-side `Mesh` of NumPy connectivity /
 geometry arrays built once at startup, and a device-side `MeshTensors`

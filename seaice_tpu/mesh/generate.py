@@ -1,6 +1,6 @@
 """Planar mesh generators (periodic or bounded quad / hex).
 
-TPU-native replacement for the reference's grid-generation tooling
+JAX replacement for the reference's grid-generation tooling
 (`/root/reference/testing_and_setup/testcases/square/*/create_grids.py`):
 builds the full MPAS-style connectivity (verticesOnCell, cellsOnVertex,
 edges, kite areas, dual areas) directly in NumPy.

@@ -1,13 +1,12 @@
 """Rhombic-panel structure of the icosahedral mesh.
 
-The TPU answer to the unstructured-gather problem for the global
+A structured answer to the unstructured-gather problem for the global
 (quasi-uniform hex) workload: the n-times-subdivided icosahedron is 10
 logically-rectangular rhombic panels of N x N cells (N = 2^s) plus the
 two pole cells; MPAS vertices (triangles) are exactly [panel, i, j, 2].
 On that layout the EVP corner "gathers" (reference hot loops
 `mpas_seaice_velocity_solver_variational.F:575-670,1064-1184`) are
-STATIC SHIFTS of panel arrays — VPU lane/sublane moves instead of
-per-index gathers — with only a thin seam/ghost exchange (O(N) indices
+STATIC SHIFTS of panel arrays instead of per-index gathers — with only a thin seam/ghost exchange (O(N) indices
 instead of O(N^2)) and a 2-cell pole exception path.
 
 Construction is purely combinatorial: the subdivision is re-run with

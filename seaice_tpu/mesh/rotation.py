@@ -1,6 +1,6 @@
 """Grid rotation and lat-lon vector rotation.
 
-TPU-native re-design of the reference rotation machinery
+JAX re-design of the reference rotation machinery
 (`mpas_seaice_mesh.F`: seaice_grid_rotation_forward :2350,
 seaice_latlon_vector_rotation_forward :2530): the Cartesian grid is
 rotated so the geographic poles map to the equator — moving the latlon

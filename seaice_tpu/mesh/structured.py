@@ -1,13 +1,12 @@
 """Structured (raster) quad-mesh detection and reordering.
 
-TPU-native fast path: when the mesh is a regular quad grid (the
+JAX fast path: when the mesh is a regular quad grid (the
 reference's square/box testcases, `testcases/square/*`), the EVP
 subcycle's two gathers — vertex velocities to cell corners and corner
 stresses back to vertices (`mpas_seaice_velocity_solver_variational.F`
 :575-670, :1064-1184) — are expressible as static 2-D SHIFTS of
-raster-ordered fields.  Shifts are contiguous slices on the VPU, so the
-gather cost (the measured bottleneck of the subcycle; per-index, ~3x
-the arithmetic) disappears entirely.
+raster-ordered fields.  Shifts are contiguous slices, so the per-index
+gathers disappear.
 
 `detect_raster_quad` recognizes the layout; `raster_reorder` permutes a
 mesh's vertices into raster order so the detection holds (cells from

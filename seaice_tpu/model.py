@@ -1,6 +1,6 @@
 """Model driver: state container + the single jitted timestep.
 
-TPU-native equivalent of the reference's core run loop and time
+JAX equivalent of the reference's core run loop and time
 integration (`/root/reference/src/model_forward/mpas_seaice_core.F:257-371`
 and `/root/reference/src/shared/mpas_seaice_time_integration.F:42-175`):
 one `seaice_timestep` = column pre-dynamics -> (dynamics subcycle:
@@ -37,7 +37,7 @@ from .utils.pytree import pytree_dataclass, replace
 
 @pytree_dataclass
 class State:
-    """Full prognostic model state (one pytree; the TPU-native Registry
+    """Full prognostic model state (one pytree; the JAX Registry
     'restart' field set, reference Registry.xml:1910-2014)."""
     velocity: VelocitySolverState
     tracers: Dict[str, Any]         # tracer arrays keyed by name
@@ -70,8 +70,7 @@ class SeaIceModel:
     reference's init-time scheme selection)."""
 
     def __init__(self, mesh: Mesh, cfg: Config, dtype=jnp.float64,
-                 tracer_tree: Optional[TracerTree] = None,
-                 build_unstructured: bool = True):
+                 tracer_tree: Optional[TracerTree] = None):
         self.mesh = mesh
         self.cfg = cfg
         self.dtype = dtype
@@ -116,8 +115,7 @@ class SeaIceModel:
         self.tree = tracer_tree
 
         mesh_t = mesh.tensors(dtype)
-        dyn_t = build_dynamics_tensors(
-            mesh, cfg, dtype, build_unstructured=build_unstructured)
+        dyn_t = build_dynamics_tensors(mesh, cfg, dtype)
         remap_t = None
         upwind_t = None
         if cfg.advection.advection_type == AdvectionType.INCREMENTAL_REMAP:
@@ -239,78 +237,21 @@ class SeaIceModel:
 
     # -- step ----------------------------------------------------------------
 
-    def _pallas_subcycle_eligible(self, raster, halo_exchange_vertex) -> bool:
-        """Resolve config.velocity.use_pallas_subcycle (None = auto).
+    def _mesh_structure(self, halo_exchange_vertex=None):
+        """(raster layout or None, panel size N or None) of the mesh."""
+        from .mesh.structured import detect_raster_quad
+        raster = detect_raster_quad(self.mesh)
+        lay = getattr(self.mesh, "panel_layout", None)
+        panel_n = (lay.N if lay is not None
+                   and self.tensors.dynamics.panel is not None
+                   and halo_exchange_vertex is None else None)
+        return raster, panel_n
 
-        The fused Pallas subcycle kernel (dynamics/pallas_evp.py) needs a
-        planar raster-quad mesh with a cell-constant basis, standard EVP
-        with quadratic ocean stress, single device, and f32 on TPU (the
-        CPU path runs in interpret mode at any dtype)."""
-        want = self.cfg.velocity.use_pallas_subcycle
-        if want is False:
-            return False
-        v = self.cfg.velocity
-        from .config import (ConstitutiveRelation, OceanStressType,
-                             StrainScheme)
-        from .dynamics.pallas_evp import basis_is_cell_constant
-        fast = self.tensors.dynamics.fast
-        # spherical panel meshes use the fused CELL kernel
-        # (dynamics/pallas_panel.py): metric terms supported, basis
-        # streamed per block
-        if self.tensors.dynamics.panel is not None and \
-                getattr(self.mesh, "panel_layout", None) is not None:
-            return (halo_exchange_vertex is None
-                    and v.strain_scheme == StrainScheme.VARIATIONAL
-                    and v.constitutive_relation ==
-                    ConstitutiveRelation.EVP
-                    and not v.average_variational_strains
-                    and (self.dtype == jnp.float32
-                         or jax.default_backend() != "tpu")
-                    and (want is True
-                         or jax.default_backend() == "tpu"))
-        # ANY-connectivity fused loop (dynamics/pallas_unstructured.py):
-        # engages when the plan was built (non-panel, non-raster mesh,
-        # standard EVP + quadratic ocean stress) on a single device
-        if self.tensors.dynamics.unstructured is not None and \
-                raster is None:
-            want_u = self.cfg.velocity.use_fused_unstructured
-            if want_u is None:
-                want_u = want
-            return (want_u is not False
-                    and halo_exchange_vertex is None
-                    and v.strain_scheme == StrainScheme.VARIATIONAL
-                    and v.constitutive_relation ==
-                    ConstitutiveRelation.EVP
-                    and not v.average_variational_strains
-                    and v.use_ocean_stress
-                    and v.ocean_stress_type == OceanStressType.QUADRATIC
-                    and (self.dtype == jnp.float32
-                         or jax.default_backend() != "tpu")
-                    and (want is True or want_u is True
-                         or jax.default_backend() == "tpu"))
-        eligible = (
-            raster is not None and not getattr(raster, "periodic", False)
-            and halo_exchange_vertex is None
-            and v.strain_scheme == StrainScheme.VARIATIONAL
-            and v.constitutive_relation == ConstitutiveRelation.EVP
-            and not v.include_metric_terms
-            and not v.average_variational_strains
-            and v.use_ocean_stress
-            and v.ocean_stress_type == OceanStressType.QUADRATIC
-            and fast is not None and basis_is_cell_constant(fast)
-            and (self.dtype == jnp.float32
-                 or jax.default_backend() != "tpu")
-            # auto mode targets TPU only; CPU (interpret-mode) runs must
-            # opt in explicitly — interpret emulation is slow and is for
-            # correctness tests
-            and (want is True or jax.default_backend() == "tpu"))
-        if want is True and not eligible:
-            raise ValueError(
-                "use_pallas_subcycle=True but the configuration is "
-                "ineligible (needs raster-quad mesh, cell-constant basis, "
-                "standard EVP, quadratic ocean stress, single device, and "
-                "f32 on TPU)")
-        return eligible
+    def velocity_path(self) -> str:
+        """The subcycle formulation make_step runs (evp.velocity_path)."""
+        raster, panel_n = self._mesh_structure()
+        return evp.velocity_path(self.cfg, self.tensors.dynamics, raster,
+                                 panel_n)
 
     def make_step(self, halo_exchange_vertex=None, jit: bool = True):
         """Build step(tensors, state, forcing) -> (state, diags).
@@ -319,25 +260,13 @@ class SeaIceModel:
         up compile time and kill the persistent cache)."""
         cfg = self.cfg
         tree = self.tree
-        from .mesh.structured import detect_raster_quad
-        raster = detect_raster_quad(self.mesh)
-        lay = getattr(self.mesh, "panel_layout", None)
-        panel_n = (lay.N if lay is not None
-                   and self.tensors.dynamics.panel is not None
-                   and halo_exchange_vertex is None else None)
+        raster, panel_n = self._mesh_structure(halo_exchange_vertex)
         vel_step = evp.make_velocity_solver(
             cfg, halo_exchange_vertex=halo_exchange_vertex,
             min_dv_edge=float(np.min(self.mesh.dv_edge[
                 self.mesh.dv_edge > 0])),
             raster=raster,
-            use_pallas=self._pallas_subcycle_eligible(
-                raster, halo_exchange_vertex),
-            panel_n=panel_n,
-            panel_mesh=self.mesh if panel_n is not None else None,
-            unstructured_plan=(
-                self.tensors.dynamics.unstructured
-                if (raster is None and panel_n is None
-                    and halo_exchange_vertex is None) else None))
+            panel_n=panel_n)
         use_remap = (cfg.advection.advection_type ==
                      AdvectionType.INCREMENTAL_REMAP)
         use_upwind = (cfg.advection.advection_type ==
@@ -345,8 +274,7 @@ class SeaIceModel:
         if use_remap:
             remap_step = make_remap_step(
                 tree, self.mesh.vertex_degree,
-                monotonic=cfg.advection.monotonic,
-                use_pallas_flux=cfg.advection.use_pallas_flux)
+                monotonic=cfg.advection.monotonic)
         adv_checks = (cfg.advection.conservation_check or
                       cfg.advection.monotonicity_check)
         if use_upwind:

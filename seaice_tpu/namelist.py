@@ -4,7 +4,7 @@ The reference configures a run from a Fortran namelist whose 316
 options are declared in 25 records in
 `/root/reference/src/Registry.xml` (parsed by the build into
 `namelist.seaice`; CIME layers `bld/build-namelist` on top).  This
-module provides the TPU-native equivalent:
+module provides the JAX equivalent:
 
 - `parse_namelist`: a Fortran-namelist reader (no external deps);
 - `REGISTRY`: a machine-checkable audit mapping EVERY reference
@@ -226,7 +226,7 @@ _na("decomposition", "aggregate_halo_exch", False,
 _na("decomposition", "reuse_halo_exch", False,
     "XLA owns buffer reuse inside the jitted step")
 _na("decomposition", "load_balance_timers", False,
-    "device-phase attribution (diagnostics.PhaseTimers, bench_phases*) "
+    "device-phase attribution (diagnostics.PhaseTimers, profiler traces) "
     "replaces MPI barrier timers")
 
 # --- restart -------------------------------------------------------------------

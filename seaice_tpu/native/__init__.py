@@ -1,6 +1,6 @@
 """Native (C++) runtime components.
 
-The TPU compute path is JAX/XLA; host-side mesh preprocessing that is
+The device compute path is JAX/XLA; host-side mesh preprocessing that is
 loop-heavy (the IR remap stencil construction) is implemented in C++
 (remap_stencil.cpp), compiled to a shared library on first use and
 bound via ctypes. The pure-Python implementations remain as reference

@@ -1,7 +1,7 @@
 // Native remap-stencil builder.
 //
 // C++ replacement for the O(nEdges) Python loops in
-// seaice_tpu/transport/geometry.py (the TPU-native analog of the
+// seaice_tpu/transport/geometry.py (the JAX analog of the
 // reference's get_geometry_incremental_remap stencil construction,
 // /root/reference/src/shared/mpas_seaice_advection_incremental_remap.F:
 // 1105-1808): builds the per-edge remap stencil (C1..C6, E1..E6, local

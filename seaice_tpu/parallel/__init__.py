@@ -1,6 +1,6 @@
 """SPMD mesh decomposition over a jax device mesh.
 
-TPU-native replacement for the reference's MPI domain decomposition
+JAX replacement for the reference's MPI domain decomposition
 (Metis partitions + mpas_dmpar halo exchange; SURVEY.md section 2h):
 cells are partitioned into contiguous blocks after a locality reordering,
 each shard gets a local submesh of owned + 2-deep-halo entities (the

@@ -1,6 +1,6 @@
 """Mesh partitioning: owned + 2-deep-halo local blocks.
 
-TPU-native replacement for the reference's Metis partition files +
+JAX replacement for the reference's Metis partition files +
 MPAS block/halo machinery (`config_block_decomp_file_prefix`,
 Registry.xml:337-384; exchange lists built by the external MPAS
 framework). Cells are ordered along a Morton (Z-order) space-filling

@@ -1,6 +1,6 @@
 """Multi-device sea-ice model: shard_map over a 1-D device mesh.
 
-TPU-native replacement for the reference's MPI block loop + dmpar halo
+JAX replacement for the reference's MPI block loop + dmpar halo
 exchange (SURVEY.md section 2h). Each device runs the identical
 single-device kernels on its local block (owned + 2-deep halo — the MPAS
 block structure), and halo refresh happens *inside* the one jitted step:
@@ -8,7 +8,7 @@ block structure), and halo refresh happens *inside* the one jitted step:
   per elastic subcycle: vertex-velocity halo refresh (the reference
     exchanges uVelocity/vVelocity by MPI once per subcycle,
     mpas_seaice_velocity_solver.F:2546-2584) -> here an all_gather of
-    per-shard export buffers over ICI + a gather;
+    per-shard export buffers (NCCL between GPUs) + a gather;
   per dynamics step: 2-deep cell halo refresh of all tracers after
     transport (reference ...incremental_remap.F:2429-2487).
 """
@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh as JaxMesh, PartitionSpec as P
+from jax.sharding import Mesh as JaxMesh, NamedSharding, PartitionSpec as P
 
 from .. import constants as c
 from ..config import AdvectionType, Config
@@ -50,9 +50,6 @@ class HaloMaps:
     vertex_halo_color: Any        # [nVertexHalo] ppermute round index
     cell_halo_color: Any          # [nCellHalo]
     overlap: Optional[Any] = None  # evp.SubcycleOverlap (stacked) or None
-    # plan-coordinate vertex halo lists (fused unstructured path)
-    vertex_export_idx_plan: Optional[Any] = None
-    vertex_halo_pos_plan: Optional[Any] = None
 
 
 def _gather_halo(buf, src_shard, src_idx):
@@ -114,7 +111,7 @@ def _exchange_perm(field, export_idx, src_idx, halo_color, n_owned,
     (S x nExport traffic). Here the shard-neighbor graph is
     edge-colored at partition time (color_halo_graph) into K partial
     permutations with K ~ the neighbor degree, so traffic is
-    K x nExport and each round is a single-hop ICI ppermute. Values
+    K x nExport and each round is one point-to-point ppermute. Values
     delivered are bitwise identical to the all_gather path."""
     halo = _perm_halo(field[export_idx], src_idx, halo_color, perms)
     return jnp.concatenate([field[:n_owned], halo], axis=0)
@@ -144,13 +141,13 @@ class ShardedSeaIceModel:
         'allgather' (every shard ships its exports everywhere).
         overlap: interior/boundary split so the per-subcycle halo
         collective is data-independent of the full-grid compute and an
-        async-collective backend (TPU ICI) can overlap the two
-        (auto-disabled for configs the split does not support: weak
-        scheme, metric terms, revised EVP).  Off by default: on the CPU
-        backend collectives are synchronous thread rendezvous, so the
-        reordering cannot help there (measured: allgather +28% from the
-        redundant boundary recompute; ring pathological) — enable for
-        multi-chip TPU runs."""
+        async-collective backend can overlap the two (auto-disabled for
+        configs the split does not support: weak scheme, metric terms,
+        revised EVP).  Off by default: on the CPU backend collectives
+        are synchronous thread rendezvous, so the reordering cannot help
+        there (measured on the CPU: allgather +28% from the redundant
+        boundary recompute; ring pathological); on NCCL it is not
+        measured yet."""
         self.global_mesh = mesh
         self.cfg = cfg
         self.dtype = dtype
@@ -171,35 +168,18 @@ class ShardedSeaIceModel:
         if devices is None:
             devices = np.array(jax.devices()[:n_shards])
         self.jax_mesh = JaxMesh(devices, (AXIS,))
-
-        # fused unstructured sharded path (one Pallas kernel launch
-        # per subcycle, halo exchange interleaved): engage on explicit
-        # request or automatically for f32 on TPU
-        want_u = v.use_fused_unstructured
-        self.use_fused_unstructured = (
-            v.use_velocity_solver
-            and v.strain_scheme == StrainScheme.VARIATIONAL
-            and v.constitutive_relation == ConstitutiveRelation.EVP
-            and not v.average_variational_strains
-            and v.use_ocean_stress
-            and (want_u is True
-                 or (want_u is None
-                     and jax.default_backend() == "tpu"
-                     and dtype == jnp.float32)))
+        self.sharding = NamedSharding(self.jax_mesh, P(AXIS))
 
         # per-block single-device models (share config/tracer tree)
-        self.models = [SeaIceModel(b.mesh, cfg, dtype,
-                                   build_unstructured=False)
+        self.models = [SeaIceModel(b.mesh, cfg, dtype)
                        for b in self.part.blocks]
-        if self.use_fused_unstructured:
-            self._attach_block_plans(dtype)
         self.tree = self.models[0].tree
         self.column = self.models[0].column
-        self.tensors = jax.tree.map(
-            lambda *xs: jnp.stack(xs), *[m.tensors for m in self.models])
+        self.tensors = self.place(jax.tree.map(
+            lambda *xs: np.stack(xs), *[m.tensors for m in self.models]))
 
         def stack(field):
-            return jnp.asarray(np.stack(field))
+            return np.stack(field)
 
         # edge-color the shard-neighbor graph into ppermute rounds;
         # padded halo slots (global id -1) are not real edges — they
@@ -253,16 +233,10 @@ class ShardedSeaIceModel:
                               basis_int_T_E=padc(o.basis_int_T_E, 3))
                    for o in ovs]
             overlap_stacked = jax.tree.map(
-                lambda *xs: jnp.stack(xs), *ovs)
+                lambda *xs: np.stack(xs), *ovs)
 
-        plan_exp = plan_pos = None
-        if self.use_fused_unstructured:
-            plan_exp = stack(self._plan_vertex_export)
-            plan_pos = stack(self._plan_vertex_halo_pos)
-        self.halo = HaloMaps(
+        self.halo = self.place(HaloMaps(
             overlap=overlap_stacked,
-            vertex_export_idx_plan=plan_exp,
-            vertex_halo_pos_plan=plan_pos,
             vertex_halo_color=stack(v_col),
             cell_halo_color=stack(c_col),
             vertex_export_idx=stack(
@@ -281,11 +255,17 @@ class ShardedSeaIceModel:
                 [b.vertex_owned_mask for b in self.part.blocks]),
             cell_owned_mask=stack(
                 [b.cell_owned_mask for b in self.part.blocks]),
-        )
+        ))
         self.n_vertices_owned = self.part.blocks[0].n_vertices_owned
         self.n_cells_owned = self.part.blocks[0].n_cells_owned
 
     # -- state scatter/gather ------------------------------------------------
+
+    def place(self, tree):
+        """Commit a pytree of stacked per-shard arrays to the device
+        mesh: block s of every leaf lives on device s (the shard_map
+        step then moves no block between devices)."""
+        return jax.device_put(tree, self.sharding)
 
     def init_state(self, ice_area_cat=None, ice_volume_cat=None,
                    snow_volume_cat=None) -> State:
@@ -303,19 +283,19 @@ class ShardedSeaIceModel:
                 None if area_l is None else area_l[s],
                 None if vol_l is None else vol_l[s],
                 None if snow_l is None else snow_l[s]))
-        return jax.tree.map(lambda *xs: jnp.stack(xs), *states)
+        return self.place(jax.tree.map(lambda *xs: np.stack(xs), *states))
 
     def scatter_forcing(self, forcing_fn):
         """forcing_fn(local_mesh) -> DynamicsForcing; stacked result."""
-        return jax.tree.map(lambda *xs: jnp.stack(xs),
-                            *[forcing_fn(b.mesh) for b in self.part.blocks])
+        return self.place(jax.tree.map(
+            lambda *xs: np.stack(xs),
+            *[forcing_fn(b.mesh) for b in self.part.blocks]))
 
     def scatter_cell_tree(self, tree):
         """Scatter a pytree of global [nCells, ...] fields (e.g.
         AtmosForcing / OceanForcing / coszen) to stacked local blocks."""
-        return jax.tree.map(
-            lambda f: jnp.asarray(
-                self.part.scatter_cell_field(np.asarray(f))), tree)
+        return self.place(jax.tree.map(
+            lambda f: self.part.scatter_cell_field(np.asarray(f)), tree))
 
     def gather_tracers(self, state: State) -> Dict[str, np.ndarray]:
         out = {}
@@ -335,67 +315,6 @@ class ShardedSeaIceModel:
 
     # -- step ----------------------------------------------------------------
 
-    def _attach_block_plans(self, dtype):
-        """Build each block's UnstructuredPlan (gather_plan.py) and
-        pad them to common (kmax, kvmax) so the per-block tensors
-        stack on the shard axis; also translate the vertex halo
-        export/import index lists into plan coordinates so the
-        per-subcycle exchange can run on the plan-layout arrays with
-        no per-subcycle reordering."""
-        from ..dynamics.gather_plan import (PlanMeta,
-                                            build_unstructured_plan)
-        from ..ops.basis import compute_variational_basis
-        from ..utils.pytree import replace as pt_replace
-
-        cfgv = self.cfg.velocity
-        plans = []
-        for s, b in enumerate(self.part.blocks):
-            vb = compute_variational_basis(
-                b.mesh,
-                basis_type=cfgv.variational_basis.value,
-                integration_type=cfgv.integration_type,
-                integration_order=cfgv.integration_order,
-                denominator_type=cfgv.variational_denominator.value,
-                include_metric_terms=cfgv.include_metric_terms,
-                rotate_cartesian_grid=cfgv.rotate_cartesian_grid)
-            plans.append(build_unstructured_plan(b.mesh, vb, dtype))
-
-        kmax = max(p.meta.kmax for p in plans)
-        kvmax = max(p.meta.kvmax for p in plans)
-
-        def padk(a, k):
-            if a.shape[1] == k:
-                return a
-            pad = jnp.broadcast_to(a[:, :1], (a.shape[0],
-                                              k - a.shape[1]))
-            return jnp.concatenate([a, pad], axis=1)
-
-        padded = []
-        for p in plans:
-            mm = p.meta
-            meta = PlanMeta(mm.nc, mm.nv, mm.me, mm.vd, mm.nchunk,
-                            mm.ngc, mm.ngv, kmax, kvmax, mm.r_v)
-            padded.append(pt_replace(
-                p, wrow=padk(p.wrow, kmax),
-                vprow=padk(p.vprow, kvmax), meta=meta))
-        for m_, p in zip(self.models, padded):
-            m_.tensors = pt_replace(
-                m_.tensors,
-                dynamics=pt_replace(m_.tensors.dynamics,
-                                    unstructured=p))
-
-        # halo index lists in plan coordinates
-        n_v_own = self.part.blocks[0].n_vertices_owned
-        self._plan_vertex_export = []
-        self._plan_vertex_halo_pos = []
-        for p, b in zip(padded, self.part.blocks):
-            vinv = np.asarray(p.vertex_inv)
-            exp = np.asarray(b.vertex_export_idx)
-            self._plan_vertex_export.append(vinv[exp])
-            n_halo = b.vertex_global.shape[0] - n_v_own
-            self._plan_vertex_halo_pos.append(
-                vinv[n_v_own + np.arange(n_halo)])
-
     def make_step(self, jit: bool = True):
         cfg = self.cfg
         tree = self.tree
@@ -408,8 +327,7 @@ class ShardedSeaIceModel:
         if use_remap:
             remap_step = make_remap_step(
                 tree, self.global_mesh.vertex_degree,
-                monotonic=cfg.advection.monotonic,
-                use_pallas_flux=cfg.advection.use_pallas_flux)
+                monotonic=cfg.advection.monotonic)
         column = self.column
         use_column = cfg.column.use_column_package
         use_ridging = use_column and cfg.column.use_ridging
@@ -458,30 +376,6 @@ class ShardedSeaIceModel:
 
             exchange_vertex_field = ex_vertex
 
-            plan_halo_exchange = None
-            if self.use_fused_unstructured and \
-                    halo.vertex_export_idx_plan is not None:
-                def plan_halo_exchange(u_pl, v_pl):
-                    """Per-subcycle vertex halo refresh directly on
-                    the plan-layout planes: gather exports at plan
-                    positions, run the usual collective, scatter into
-                    the halo vertices' plan positions."""
-                    shp = u_pl.shape
-                    flat = jnp.stack([u_pl.reshape(-1),
-                                      v_pl.reshape(-1)], axis=-1)
-                    buf = flat[halo.vertex_export_idx_plan]
-                    if self.halo_mode == "ring":
-                        hv = _perm_halo(buf, halo.vertex_halo_src_idx,
-                                        halo.vertex_halo_color,
-                                        self.halo_perms)
-                    else:
-                        hv = _gather_halo(buf,
-                                          halo.vertex_halo_src_shard,
-                                          halo.vertex_halo_src_idx)
-                    flat = flat.at[halo.vertex_halo_pos_plan].set(hv)
-                    return (flat[..., 0].reshape(shp),
-                            flat[..., 1].reshape(shp))
-
             halo_overlap = None
             if self.overlap_enabled and halo.overlap is not None:
                 if self.halo_mode == "ring":
@@ -495,22 +389,13 @@ class ShardedSeaIceModel:
                             buf, halo.vertex_halo_src_shard,
                             halo.vertex_halo_src_idx)
                 halo_overlap = (halo.overlap, exchange_from_buf, n_v_own)
-            if plan_halo_exchange is not None:
-                # the fused per-subcycle kernel supersedes the
-                # interior/boundary overlap split
-                halo_overlap = None
 
             vel_step = evp.make_velocity_solver(
                 cfg, halo_exchange_vertex=exchange_vertex_uv,
                 halo_exchange_cell_field=exchange_cell,
                 halo_exchange_vertex_field=exchange_vertex_field,
                 min_dv_edge=self.part.min_dv_edge,
-                halo_overlap=halo_overlap,
-                use_pallas=plan_halo_exchange is not None,
-                unstructured_plan=(tensors.dynamics.unstructured
-                                   if plan_halo_exchange is not None
-                                   else None),
-                plan_halo_exchange=plan_halo_exchange)
+                halo_overlap=halo_overlap)
 
             tr = dict(state.tracers)
             vel = state.velocity
@@ -716,37 +601,3 @@ def dryrun(n_devices: int) -> None:
                   day_of_year=jnp.asarray(265.0, jnp.float32),
                   lat=lat_l, faero_atm=faero_l)
     jax.block_until_ready(out.velocity.u_velocity)
-
-    # second pass: the SHARDED FUSED velocity path (one Pallas kernel
-    # launch per subcycle, vertex halo exchange in plan coordinates
-    # between launches — interpret mode on the virtual CPU devices;
-    # VERDICT round-4 item 2)
-    import dataclasses as _dc
-    cfg_f = _dc.replace(cfg, velocity=_dc.replace(
-        cfg.velocity, elastic_subcycle_number=4,
-        use_fused_unstructured=True, use_pallas_subcycle=False))
-    mesh_f = box.box_test_mesh(16, 16)
-    mesh_f.f_vertex = box.box_coriolis_parameter(mesh_f)
-    model_f = ShardedSeaIceModel(mesh_f, cfg_f, n_devices,
-                                 dtype=jnp.float32)
-    if not model_f.use_fused_unstructured:
-        raise RuntimeError("sharded fused path did not engage")
-    (area_f, vol_f, snow_f, extra_f, atm_f, ocn_f,
-     cz_f) = full_physics_inputs(mesh_f, cfg_f, jnp.float32)
-    state_f = model_f.init_state(area_f, vol_f, snow_f)
-    tr_f = dict(state_f.tracers)
-    for k, v in extra_f.items():
-        tr_f[k] = jnp.asarray(model_f.part.scatter_cell_field(
-            np.asarray(v, np.float32)))
-    state_f = pt_replace(state_f, tracers=tr_f)
-    forcing_f = model_f.scatter_forcing(
-        lambda m: box.box_forcing(m, t=0.0, dtype=jnp.float32))
-    atm_fl = model_f.scatter_cell_tree(
-        jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), atm_f))
-    ocn_fl = model_f.scatter_cell_tree(
-        jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), ocn_f))
-    cz_fl = model_f.scatter_cell_tree(jnp.asarray(cz_f, jnp.float32))
-    step_f = model_f.make_step()
-    out_f, _ = step_f(model_f.tensors, model_f.halo, state_f,
-                      forcing_f, atm_fl, ocn_fl, cz_fl)
-    jax.block_until_ready(out_f.velocity.u_velocity)

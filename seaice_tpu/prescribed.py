@@ -1,6 +1,6 @@
 """Prescribed (data) ice mode.
 
-TPU-native re-design of `mpas_seaice_prescribed.F`
+JAX re-design of `mpas_seaice_prescribed.F`
 (seaice_run_prescribed_ice :128-320): impose observed ice coverage on
 the state each step — the CIME `_MPASSI%PRES` compset behavior. The
 per-cell branching becomes masked dense updates.

@@ -1,6 +1,6 @@
 """Standalone run loop.
 
-TPU-native re-design of the reference core lifecycle
+JAX re-design of the reference core lifecycle
 (`mpas_seaice_core.F`: seaice_core_init :34, seaice_core_run :257 with
 its timeLoop :314-371, seaice_core_finalize :414): a host loop that
 advances the clock, pulls interpolated forcing, calls the single jitted
@@ -196,6 +196,24 @@ class StandaloneRunner:
 
         return jax.jit(fn)
 
+    def step_inputs(self):
+        """The device step's arguments after (tensors, state): raw forcing
+        records at the current clock (reference seaice_forcing_get
+        :306; interpolation is host-side and cheap, derived fields
+        happen on device) and the clock scalars."""
+        d = self.dtype
+        sixh = monthly = ocn_raw = None
+        if self.atmos is not None:
+            sixh, monthly = self.atmos.raw_snapshot(self.clock)
+            sixh = {k: jnp.asarray(v, d) for k, v in sixh.items()}
+            monthly = {k: jnp.asarray(v, d) for k, v in monthly.items()}
+        if self.ocean is not None:
+            ocn_raw = {k: jnp.asarray(v, d) for k, v in
+                       self.ocean.snapshot(self.clock).items()}
+        return (sixh, monthly, ocn_raw,
+                jnp.asarray(self.clock.seconds_today, d),
+                jnp.asarray(float(self.clock.day_of_year), d))
+
     # -- time loop (reference timeLoop :314-371) -----------------------------
 
     def run(self, n_steps: int, check_interval: int = 1):
@@ -204,31 +222,13 @@ class StandaloneRunner:
         reference's per-step seaice_check_state)."""
         model = self.model
         dt = model.cfg.run.dt
-        d = self.dtype
         for istep in range(n_steps):
-            # raw forcing records at the current clock (reference
-            # seaice_forcing_get :306); interpolation is host-side and
-            # cheap, derived fields happen on device
             with self.timers.time("forcing"):
-                sixh = monthly = None
-                ocn_raw = None
-                if self.atmos is not None:
-                    sixh, monthly = self.atmos.raw_snapshot(self.clock)
-                    sixh = {k: jnp.asarray(v, d)
-                            for k, v in sixh.items()}
-                    monthly = {k: jnp.asarray(v, d)
-                               for k, v in monthly.items()}
-                if self.ocean is not None:
-                    ocn_raw = {k: jnp.asarray(v, d) for k, v in
-                               self.ocean.snapshot(self.clock).items()}
+                inputs = self.step_inputs()
 
             with self.timers.time("timestep"):
                 self.state, diags, checks, cell_masks = \
-                    self._device_step(
-                        model.tensors, self.state, sixh, monthly,
-                        ocn_raw,
-                        jnp.asarray(self.clock.seconds_today, d),
-                        jnp.asarray(float(self.clock.day_of_year), d))
+                    self._device_step(model.tensors, self.state, *inputs)
                 jax.block_until_ready(self.state.velocity.u_velocity)
 
             self.clock.advance(dt)

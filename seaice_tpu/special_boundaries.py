@@ -1,6 +1,6 @@
 """Special boundaries: test-harness Dirichlet overrides.
 
-TPU-native re-design of `mpas_seaice_special_boundaries.F` (init :61,
+JAX re-design of `mpas_seaice_special_boundaries.F` (init :61,
 setters :253-415): masked overrides of velocity and tracer values at
 marked vertices/cells, applied after each solve/advection step.
 """

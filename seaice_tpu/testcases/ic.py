@@ -1,6 +1,6 @@
 """Idealized initial-condition generators.
 
-TPU-native re-design of the reference's `init_ice_state` modes
+JAX re-design of the reference's `init_ice_state` modes
 (`/root/reference/src/shared/mpas_seaice_initialize.F:253-360`:
 uniform :462, uniform_interior :1095, circle :1188, special :1321,
 random_coverage :1441, cice_default :573 with the parabolic category

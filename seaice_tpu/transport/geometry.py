@@ -1,6 +1,6 @@
 """Host-side geometry precompute for incremental remapping.
 
-TPU-native equivalent of `get_geometry_incremental_remap` and
+JAX equivalent of `get_geometry_incremental_remap` and
 `compute_geometric_cell_averages`
 (`/root/reference/src/shared/mpas_seaice_advection_incremental_remap.F:1105-1808,2097-2323`):
 everything data-dependent-branchy is resolved ONCE here in NumPy into
@@ -531,7 +531,7 @@ def least_squares_reconstruction_coeffs(mesh: Mesh, x_local=None,
     g_k ~ grad.n_k and n_k is the unit vector from cellsOnEdge[0] to
     cellsOnEdge[1].
 
-    Least-squares fit, exact for linear fields — the TPU-native stand-in
+    Least-squares fit, exact for linear fields — the JAX stand-in
     for the MPAS framework RBF coeffsReconstruct consumed at
     incremental_remap.F:4340-4346.
 

@@ -1,6 +1,6 @@
 """Incremental-remapping transport: the jitted pipeline.
 
-TPU-native re-design of the reference IR driver
+JAX re-design of the reference IR driver
 (`/root/reference/src/shared/mpas_seaice_advection_incremental_remap.F:2338-2667`
 and the stage kernels it calls). The Fortran per-edge branching of
 `find_departure_triangles` (:5365-6269) becomes a *fixed-slot* masked dense
@@ -26,7 +26,7 @@ Algorithm stages per dynamics substep (reference :2338-2667):
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -267,12 +267,11 @@ def triangles_to_cell_coords(rt: RemapTensors, tris: dict):
     seams: offset = xLocal(cell, sharedVertex) - xVertexOnEdge(sharedVertex).
     Returns (cell [nE,S], xq, yq [nE,S,6], area [nE,S]).
 
-    TPU note: the slot choice is data-dependent, but all the per-slot
-    tables (cell index, mask, rotation, shared-vertex coordinates) are
-    static per (edge, k) — so instead of take-along-axis row gathers
-    (measured ~36 ms at 28k cells: per-index cost dominates the whole
-    remap), the lookup is a ONE-HOT CONTRACTION over the K=6 cell slots:
-    exact (one term is 1.0, the rest 0.0) and pure vector math.
+    The slot choice is data-dependent, but all the per-slot tables
+    (cell index, mask, rotation, shared-vertex coordinates) are static
+    per (edge, k) — so instead of take-along-axis row gathers the lookup
+    is a ONE-HOT CONTRACTION over the K=6 cell slots: exact at HIGHEST
+    precision (one term is 1.0, the rest 0.0) and pure vector math.
     """
     cell_slot = tris["cell_slot"]                     # [nE, S]
     dtype = tris["tri_x"].dtype
@@ -306,8 +305,8 @@ def triangles_to_cell_coords(rt: RemapTensors, tris: dict):
     tx = x0[..., None] + rx
     ty = y0[..., None] + ry
     # quadrature points: barycentric combination of the 3 vertices
-    xq = jnp.einsum("qk,esk->esq", rt.qp_coeffs, tx)
-    yq = jnp.einsum("qk,esk->esq", rt.qp_coeffs, ty)
+    xq = jnp.einsum("qk,esk->esq", rt.qp_coeffs, tx, precision=hi)
+    yq = jnp.einsum("qk,esk->esq", rt.qp_coeffs, ty, precision=hi)
     area = tris["area"] * cmask
     return cell, xq, yq, area
 
@@ -532,7 +531,7 @@ def reconstruct_fields(tree: TracerTree, fields: Dict[str, Any],
 
 # -- stage 4: flux integration (reference :6667-6982) -------------------------
 #
-# TPU redesign of integrate_fluxes_over_triangles: instead of carrying
+# Redesign of integrate_fluxes_over_triangles: instead of carrying
 # per-quad-point product value arrays ([nEdges, slots, 6, nCat] per
 # tracer — the reference structure), each tracer's mass*tracer product
 # is represented by its POLYNOMIAL COEFFICIENTS in the cell frame
@@ -570,7 +569,8 @@ def triangle_monomial_integrals(rt: RemapTensors, xq, yq,
     w = rt.qp_weights
     cols = []
     for (i, j) in terms:
-        v = jnp.einsum("q,esq->es", w, (xq ** i) * (yq ** j))
+        v = jnp.einsum("q,esq->es", w, (xq ** i) * (yq ** j),
+                       precision=jax.lax.Precision.HIGHEST)
         cols.append(v)
     return jnp.stack(cols, axis=-1), terms            # [nE, S, M]
 
@@ -580,12 +580,11 @@ def integrate_fluxes(tree: TracerTree, recon, rt: RemapTensors,
     """Edge fluxes of mass and mass*tracer products.
     Returns dict name -> flux [nEdges, nCat(, nLayers)].
 
-    TPU layout: gathers run along the LEADING cell axis with all
+    Layout: gathers run along the LEADING cell axis with all
     (category, coefficient) data flattened into the minor axis — the
     natural gather-major layout — and the coefficient contraction is a
-    minor-axis reduce.  Trailing-axis gathers or [nE,S,nCat,M]-shaped
-    intermediates provoke XLA layout copies that cost more than the
-    whole integration (measured 4x between formulations)."""
+    minor-axis reduce, so no [nE,S,nCat,M]-shaped intermediate needs a
+    layout copy."""
     nE, S = cell.shape
     X = nE * S
     cellf = cell.reshape(-1)                         # [X]
@@ -827,31 +826,17 @@ def from_transport_fields(tree: TracerTree, fields: Dict[str, Any]):
 # -- driver -------------------------------------------------------------------
 
 def make_remap_step(tree: TracerTree, vertex_degree: int,
-                    monotonic: bool = True,
-                    use_pallas_flux: Optional[bool] = None):
+                    monotonic: bool = True):
     """Build the jitted IR transport step.
 
     Returns step(rt, cells_on_cell, cells_on_cell_mask, area_cell,
                  state, u_vertex, v_vertex, dt) -> new state,
     where `state` is a dict of tracer arrays in *storage* convention
     (volumes stored as volumes). Mirrors
-    seaice_run_advection_incremental_remap (reference :2338-2667).
-
-    use_pallas_flux: None = auto — the fused Pallas flux-integration
-    kernel (transport/pallas_flux.py) on TPU, the XLA formulation
-    elsewhere."""
-    if use_pallas_flux is None:
-        use_pallas_flux = jax.default_backend() == "tpu"
+    seaice_run_advection_incremental_remap (reference :2338-2667)."""
 
     def step(rt: RemapTensors, cells_on_cell, cells_on_cell_mask,
              area_cell, state, u_vertex, v_vertex, dt):
-        # the fused kernel's MXU contractions cannot lower at f64 on
-        # real TPU (Mosaic dot_general is f32/bf16); f64 runs (e.g.
-        # driving the TPU backend with x64 for convergence studies)
-        # take the XLA formulation instead
-        engage_pallas = use_pallas_flux and not (
-            u_vertex.dtype == jnp.float64 and
-            jax.default_backend() == "tpu")
         fields = to_transport_fields(tree, state)
         mask_cell, masks = make_masks(tree, fields)
         recon = reconstruct_fields(tree, fields, masks, mask_cell, rt,
@@ -860,12 +845,7 @@ def make_remap_step(tree: TracerTree, vertex_degree: int,
         dpx, dpy = departure_points(u_vertex, v_vertex, dt)
         tris = find_departure_triangles(rt, dpx, dpy, vertex_degree)
         cell, xq, yq, area = triangles_to_cell_coords(rt, tris)
-        if engage_pallas:
-            from .pallas_flux import integrate_fluxes_fused
-            fluxes = integrate_fluxes_fused(tree, recon, rt,
-                                            tris["cell_slot"], xq,
-                                            yq, area, tris["mask_edge"])
-        else:
+        with jax.named_scope("integrate_fluxes"):
             fluxes = integrate_fluxes(tree, recon, rt, cell, xq, yq,
                                       area, tris["mask_edge"])
         new_fields = update_mass_and_tracers(tree, fields, fluxes, rt,

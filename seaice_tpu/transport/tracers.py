@@ -1,6 +1,6 @@
 """Static tracer hierarchy for incremental remapping.
 
-TPU-native replacement for the reference's linked list of tracer objects
+JAX replacement for the reference's linked list of tracer objects
 (`/root/reference/src/shared/mpas_seaice_advection_incremental_remap_tracers.F:30-137`,
 `seaice_add_tracers_to_linked_list` :158): a *static* table of TracerSpec
 rows in topological order (parents before children) driving generic

@@ -1,6 +1,6 @@
 """Parallel (per-shard) I/O: gatherless restart and history streams.
 
-The TPU analog of the reference's PIO io-task layer
+The JAX analog of the reference's PIO io-task layer
 (Registry.xml:380-396): each shard writes only its owned rows; restart
 reads are halo-aware (only owner parts touched); reassembly matches the
 host-gather path bitwise."""

@@ -289,53 +289,3 @@ def test_runtime_self_checks_in_model():
     assert float(diags["ir_conservation_error"]) < 1e-11
     assert float(diags["ir_monotonicity_violation"]) == 0.0
 
-
-def test_pallas_flux_matches_xla():
-    """The fused Pallas flux-integration kernel (transport/
-    pallas_flux.py, interpret mode on CPU) reproduces the XLA
-    formulation over the full tracer hierarchy incl. 3D tracers."""
-    from seaice_tpu.config import (AdvectionConfig, ColumnConfig,
-                                   Config, RunConfig,
-                                   VelocitySolverConfig)
-    from seaice_tpu.model import SeaIceModel
-    from seaice_tpu.testcases import box
-    from seaice_tpu.transport import remap as R
-    from seaice_tpu.transport.pallas_flux import integrate_fluxes_fused
-
-    cfg = Config(
-        run=RunConfig(dt=1800.0, n_categories=3, n_ice_layers=4),
-        velocity=VelocitySolverConfig(elastic_subcycle_number=2),
-        advection=AdvectionConfig(),
-        column=ColumnConfig(ktherm=2, shortwave="dEdd",
-                            pond_scheme="lvl"))
-    mesh = box.box_test_mesh(8, 8)
-    mesh.f_vertex = box.box_coriolis_parameter(mesh)
-    model = SeaIceModel(mesh, cfg, dtype=jnp.float64)
-    area, vol, snow = box.box_initial_state(mesh, 3)
-    state = model.init_state(area, vol, snow)
-    tree, rt = model.tree, model.tensors.remap
-    coc = model.tensors.mesh.cells_on_cell
-    cocm = model.tensors.mesh.cells_on_cell_mask
-    rng = np.random.default_rng(3)
-    nv = mesh.n_vertices
-    uv = jnp.asarray(0.12 * rng.standard_normal(nv))
-    vv = jnp.asarray(0.12 * rng.standard_normal(nv))
-    fields = R.to_transport_fields(tree, dict(state.tracers))
-    mask_cell, masks = R.make_masks(tree, fields)
-    recon = R.reconstruct_fields(tree, fields, masks, mask_cell, rt,
-                                 coc, cocm, monotonic=True)
-    dpx, dpy = R.departure_points(uv, vv, 900.0)
-    tris = R.find_departure_triangles(rt, dpx, dpy,
-                                      mesh.vertex_degree)
-    cell, xq, yq, tarea = R.triangles_to_cell_coords(rt, tris)
-    f_xla = R.integrate_fluxes(tree, recon, rt, cell, xq, yq, tarea,
-                               tris["mask_edge"])
-    f_pl = integrate_fluxes_fused(tree, recon, rt, tris["cell_slot"],
-                                  xq, yq, tarea, tris["mask_edge"],
-                                  interpret=True, K=16)
-    for k in f_xla:
-        a, b = np.asarray(f_xla[k]), np.asarray(f_pl[k])
-        scale = max(np.abs(a).max(), 1e-30)
-        np.testing.assert_allclose(b, a, rtol=0, atol=500 *
-                                   np.finfo(a.dtype).eps * scale,
-                                   err_msg=k)

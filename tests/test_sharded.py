@@ -1,5 +1,5 @@
 """Sharding-count invariance: the multi-device step must reproduce the
-single-device step (the TPU analog of the reference's 16-vs-32-rank
+single-device step (the JAX analog of the reference's 16-vs-32-rank
 bitwise parallelism test, testing_and_setup/testing/tests/parallelism.py).
 Runs on the virtual 8-device CPU mesh (conftest.py)."""
 
